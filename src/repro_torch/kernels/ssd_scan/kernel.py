@@ -1,0 +1,110 @@
+"""Build and launch the SSD chunked-scan CUDA kernel (``csrc/ssd_scan.cu``).
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C entry point, loaded with ``ctypes``.  The build happens at the
+first launch (or an explicit ``build()``), into ``build/kernels/`` at the
+repository root, named by a hash of the source and flags so that an edited
+source is rebuilt.  Importing this module needs no compiler and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+TILE = 16  # the kernel needs the chunk length to be a multiple of this
+
+_lib: ctypes.CDLL | None = None
+BUILD_LOG = ""  # ptxas' report (registers, shared memory, spills) of the last build
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("ssd_scan: nvcc not found; the CUDA kernel cannot be built")
+    return path
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if not yet built) and load the kernel library; raises on failure."""
+    global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"ssd_scan_{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"ssd_scan: nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        BUILD_LOG = proc.stderr
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.ssd_scan_launch.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def ssd_scan_cuda(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+    *, chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on the current stream.  S % chunk == 0 and chunk % 16 == 0.
+
+    Returns (y in x's dtype: (B,S,H,P), final_state float32: (B,H,P,N)).
+    """
+    b, s, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    tensors = {"x": x, "dt": dt, "a": a, "bmat": bmat, "cmat": cmat}
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"ssd_scan_cuda: {name} must be on {x.device} (CUDA), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan_cuda: {name} must be contiguous")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ssd_scan_cuda: x must be float32 or bfloat16, got {x.dtype}")
+    if bmat.dtype != x.dtype or cmat.dtype != x.dtype:
+        raise ValueError("ssd_scan_cuda: bmat and cmat must have x's dtype")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError("ssd_scan_cuda: dt and a must be float32")
+    if (
+        dt.shape != (b, s, h) or a.shape != (h,) or bmat.shape != (b, s, g, n)
+        or cmat.shape != bmat.shape or h % g
+    ):
+        raise ValueError(
+            f"ssd_scan_cuda: shapes x{tuple(x.shape)} dt{tuple(dt.shape)} a{tuple(a.shape)} "
+            f"B{tuple(bmat.shape)} C{tuple(cmat.shape)} do not agree"
+        )
+    if chunk % TILE or s % chunk or p % 4 or n % 4:
+        raise ValueError(
+            f"ssd_scan_cuda: needs chunk % {TILE} == 0, S % chunk == 0, P % 4 == 0, N % 4 == 0; "
+            f"got chunk={chunk} S={s} P={p} N={n}"
+        )
+    lib = build()
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+        y.data_ptr(), state.data_ptr(), b, s, h, p, g, n, chunk,
+        int(x.dtype == torch.bfloat16), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_cuda: launch failed with cudaError {rc}")
+    return y, state

@@ -1,0 +1,166 @@
+"""Architecture configuration shared by every model family.
+
+One dataclass covers the whole assigned pool (dense GQA, MoE, SSM, hybrid,
+encoder-decoder, VLM backbone).  Family-specific fields are ignored by other
+families.  ``reduced()`` derives the small smoke-test variant of the same
+family (few layers, narrow width, tiny vocab) used by per-arch CPU tests; the
+full configs are only ever lowered via ShapeDtypeStruct in the dry-run.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: Family
+    num_layers: int
+    d_model: int
+    vocab_size: int
+    # attention
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0           # 0 = full attention
+    # mlp
+    d_ff: int = 0
+    # moe
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # ssm (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    # hybrid (zamba2-style shared attention block)
+    attn_every: int = 0               # apply the shared attn block every k ssm layers
+    # encoder-decoder (whisper-style)
+    encoder_layers: int = 0
+    encoder_frames: int = 1500        # precomputed frame embeddings (stub frontend)
+    # vlm (prefix patch embeddings, stub frontend)
+    num_patches: int = 0
+    # numerics / impl
+    norm_eps: float = 1e-5
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    attention_impl: str = "xla"       # xla | flash (Pallas kernel on TPU)
+    remat: bool = True
+    # distribution adjustments (see sharding.rules.pad_config_for_mesh):
+    orig_num_heads: int = 0           # >0 when q heads were padded for TP
+    vocab_pad_multiple: int = 1       # pad vocab (embedding rows only) for TP
+
+    # ---------------------------------------------------------------- derived
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(1, self.num_heads)
+
+    @property
+    def vocab_padded(self) -> int:
+        m = self.vocab_pad_multiple
+        return -(-self.vocab_size // m) * m
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.d_model * self.ssm_expand
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def ssm_groups(self) -> int:
+        return 1
+
+    def has_attention(self) -> bool:
+        return self.family != "ssm"
+
+    def subquadratic(self) -> bool:
+        """True if long_500k is runnable (SSM / hybrid w/ windowed attention)."""
+        return self.family in ("ssm", "hybrid")
+
+    # ---------------------------------------------------------------- params
+    def param_count(self) -> int:
+        """Approximate parameter count N (used for MODEL_FLOPS = 6*N*D)."""
+        d, v = self.d_model, self.vocab_size
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        hd = self.resolved_head_dim
+        if self.family in ("dense", "vlm", "moe", "encdec"):
+            attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+            if self.family == "moe":
+                ffn = 3 * d * self.expert_d_ff * (self.num_experts + self.num_shared_experts)
+                ffn += d * self.num_experts  # router
+            else:
+                ffn = 3 * d * self.d_ff
+            per_layer = attn + ffn + 2 * d
+            n = self.num_layers * per_layer + emb
+            if self.family == "encdec":
+                # encoder layers + cross-attention in decoder
+                enc = self.encoder_layers * (attn + 3 * d * self.d_ff + 2 * d)
+                cross = self.num_layers * attn
+                n += enc + cross
+            return n
+        if self.family == "ssm":
+            di, ns = self.ssm_d_inner, self.ssm_state
+            per_layer = d * (2 * di + 2 * self.ssm_groups * ns + self.ssm_num_heads) + di * d + di
+            return self.num_layers * per_layer + emb
+        if self.family == "hybrid":
+            di, ns = self.ssm_d_inner, self.ssm_state
+            mamba = d * (2 * di + 2 * self.ssm_groups * ns + self.ssm_num_heads) + di * d + di
+            attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+            shared = attn + 3 * d * self.d_ff + 2 * d  # ONE shared block
+            return self.num_layers * (mamba + 2 * d) + shared + emb
+        raise ValueError(self.family)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        hd = self.resolved_head_dim
+        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+        ffn = 3 * d * self.expert_d_ff * (self.top_k + self.num_shared_experts)
+        per_layer = attn + ffn + 2 * d + d * self.num_experts
+        return self.num_layers * per_layer + self.vocab_size * d * 2
+
+    def reduced(self) -> "ArchConfig":
+        """Small same-family config for CPU smoke tests."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            num_layers=min(self.num_layers, 2 if self.family != "hybrid" else 4),
+            d_model=64,
+            head_dim=16 if self.num_heads else 0,
+            num_heads=max(0, min(self.num_heads, 4)),
+            num_kv_heads=max(0, min(self.num_kv_heads, 2)),
+            d_ff=128 if self.d_ff else 0,
+            vocab_size=256,
+            num_experts=min(self.num_experts, 8),
+            num_shared_experts=min(self.num_shared_experts, 1),
+            top_k=min(self.top_k, 2),
+            expert_d_ff=32 if self.expert_d_ff else 0,
+            ssm_state=min(self.ssm_state, 16),
+            ssm_head_dim=16 if self.ssm_state else 64,
+            ssm_chunk=16,
+            attn_every=min(self.attn_every, 2) if self.attn_every else 0,
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_frames=32,
+            num_patches=min(self.num_patches, 8),
+            param_dtype="float32",
+            compute_dtype="float32",
+            remat=False,
+        )

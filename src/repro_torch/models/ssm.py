@@ -1,0 +1,159 @@
+"""Mamba2 block: state-space duality (SSD) with chunked scan.
+
+Follows the Mamba2 formulation (arXiv:2405.21060): input projections to
+(z, x, B, C, dt), short depthwise conv on (x, B, C), SSD chunked scan with
+scalar-per-head decay A, gated RMSNorm, output projection.
+
+Parameters keep the reference's names and layouts: the projections are
+separate (wz/wx/wb/wc/wdt, each (d_model, out) and applied as ``x @ w``), the
+conv weights are (conv_width, channels).  Params are stored in
+``cfg.param_dtype`` and cast to ``cfg.compute_dtype`` at use; ``dt``, ``a``
+and the decode state are float32.
+
+The chunked scan is ``repro_torch.kernels.ssd_scan.ops.ssd_scan``: the CUDA
+kernel on the card, the plain reference on the CPU.  Decode keeps a
+constant-size recurrent state (B, H, P, N) plus a (conv_width-1)-deep conv
+cache of the pre-conv (x|B|C) inputs.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.ssd_scan import ops as ssd_ops
+from .config import ArchConfig
+from .layers import _dtype, _normal, _param, rmsnorm, rmsnorm_init
+
+
+def _causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, width W.  x: (B,S,C); w: (W,C).
+
+    Unrolled shifted adds, as the reference; no cuDNN (whose float32
+    convolution defaults to TF32).
+    """
+    wwidth = w.shape[0]
+    pad = F.pad(x, (0, 0, wwidth - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(wwidth):
+        out = out + pad[:, i : i + x.shape[1], :] * w[i]
+    return out + b
+
+
+def ssm_init_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict[str, torch.Tensor]:
+    h, pdim, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {
+        "state": torch.zeros((batch, h, pdim, n), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_dim), dtype=dtype, device=device),
+    }
+
+
+class Mamba2Mixer(nn.Module):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        self.cfg = cfg
+        dt = _dtype(cfg.param_dtype)
+        d, di, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_num_heads
+        gn, w = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_conv_width
+        s = d**-0.5
+
+        def normal(shape, scale):
+            return _normal(shape, scale, dt, generator, device)
+
+        def const(t):
+            return _param(t.to(dtype=dt, device=device))
+
+        self.wz = normal((d, di), s)
+        self.wx = normal((d, di), s)
+        self.wb = normal((d, gn), s)
+        self.wc = normal((d, gn), s)
+        self.wdt = normal((d, h), s)
+        self.conv_x = normal((w, di), 0.2)
+        self.conv_bx = const(torch.zeros(di))
+        self.conv_b = normal((w, gn), 0.2)
+        self.conv_bb = const(torch.zeros(gn))
+        self.conv_c = normal((w, gn), 0.2)
+        self.conv_bc = const(torch.zeros(gn))
+        self.a_log = const(torch.log(torch.linspace(1.0, 16.0, h)))
+        self.dt_bias = const(torch.zeros(h))
+        self.d_skip = const(torch.ones(h))
+        self.norm = rmsnorm_init(di, dt, device)
+        self.out_proj = normal((di, d), di**-0.5)
+
+    def _project(self, xc: torch.Tensor):
+        cd = xc.dtype
+        return tuple(xc @ w.to(cd) for w in (self.wz, self.wx, self.wb, self.wc, self.wdt))
+
+    def _gate_out(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        y = rmsnorm(self.norm, y * F.silu(z), self.cfg.norm_eps)
+        return y @ self.out_proj.to(y.dtype)
+
+    def forward(self, xin: torch.Tensor, return_state: bool = False):
+        """Full-sequence SSD.  xin: (B,S,D) -> out (B,S,D).
+
+        With ``return_state`` also returns (final_state, conv_tail) where
+        ``conv_tail`` holds the last (conv_width-1) *pre-conv* (x|B|C) inputs,
+        matching the decode conv-cache layout, so prefill hands off to decode.
+        """
+        cfg = self.cfg
+        cd = _dtype(cfg.compute_dtype)
+        b, s, _ = xin.shape
+        h, pdim, n, g = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+        z, x_raw, b_raw, c_raw, dt_raw = self._project(xin.to(cd))
+
+        x = F.silu(_causal_conv(self.conv_x.to(cd), self.conv_bx.to(cd), x_raw))
+        bmat = F.silu(_causal_conv(self.conv_b.to(cd), self.conv_bb.to(cd), b_raw))
+        cmat = F.silu(_causal_conv(self.conv_c.to(cd), self.conv_bc.to(cd), c_raw))
+        x = x.reshape(b, s, h, pdim)
+        bmat = bmat.reshape(b, s, g, n)
+        cmat = cmat.reshape(b, s, g, n)
+        dt = F.softplus(dt_raw.to(torch.float32) + self.dt_bias.to(torch.float32))
+        a = -torch.exp(self.a_log.to(torch.float32))
+
+        y, state = ssd_ops.ssd_scan(x, dt, a, bmat, cmat, chunk=cfg.ssm_chunk)
+        y = y.to(cd) + x * self.d_skip.to(cd)[None, None, :, None]
+        out = self._gate_out(y.reshape(b, s, cfg.ssm_d_inner), z)
+        if return_state:
+            w = cfg.ssm_conv_width - 1
+            tail = torch.cat([x_raw, b_raw, c_raw], dim=-1)[:, -w:, :]
+            if s < w:
+                tail = F.pad(tail, (0, 0, w - s, 0))
+            return out, state, tail
+        return out
+
+    def init_cache(self, batch: int, dtype) -> dict[str, torch.Tensor]:
+        return ssm_init_cache(self.cfg, batch, dtype, self.wz.device)
+
+    def decode(self, xin: torch.Tensor, cache: dict[str, torch.Tensor]):
+        """Single-token recurrent step.  xin: (B,1,D) -> (out (B,1,D), new cache)."""
+        cfg = self.cfg
+        cd = _dtype(cfg.compute_dtype)
+        b = xin.shape[0]
+        h, pdim, n, g = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+        di = cfg.ssm_d_inner
+        z, x_raw, b_raw, c_raw, dt_raw = self._project(xin.to(cd))
+
+        new_col = torch.cat([x_raw[:, 0], b_raw[:, 0], c_raw[:, 0]], dim=-1)  # (B, conv_dim)
+        hist = torch.cat([cache["conv"].to(cd), new_col[:, None, :]], dim=1)  # (B,W,C)
+        wfull = torch.cat([self.conv_x, self.conv_b, self.conv_c], dim=1).to(cd)
+        bfull = torch.cat([self.conv_bx, self.conv_bb, self.conv_bc]).to(cd)
+        conv_out = F.silu((hist * wfull).sum(dim=1) + bfull)
+        x = conv_out[:, :di].reshape(b, h, pdim)
+        bvec = conv_out[:, di : di + g * n].reshape(b, g, n)
+        cvec = conv_out[:, di + g * n :].reshape(b, g, n)
+        dt = F.softplus(dt_raw[:, 0].to(torch.float32) + self.dt_bias.to(torch.float32))  # (B,H)
+        a = -torch.exp(self.a_log.to(torch.float32))
+
+        decay = torch.exp(a[None] * dt)  # (B,H)
+        rep = h // g
+        bvec_h = bvec.repeat_interleave(rep, dim=1).to(torch.float32)  # (B,H,N)
+        cvec_h = cvec.repeat_interleave(rep, dim=1).to(torch.float32)
+        dx = dt[..., None] * x.to(torch.float32)  # (B,H,P)
+        state = cache["state"] * decay[..., None, None] + dx[..., None] * bvec_h[:, :, None, :]
+        y = torch.einsum("bhpn,bhn->bhp", state, cvec_h).to(cd)
+        y = y + x * self.d_skip.to(cd)[None, :, None]
+        out = self._gate_out(y.reshape(b, 1, di), z)
+        new_cache = {"state": state, "conv": hist[:, 1:, :].to(cache["conv"].dtype)}
+        return out, new_cache
+

@@ -1,0 +1,73 @@
+"""Minimal batched serving engine: admit -> prefill -> decode loop.
+
+Uses the model's prefill/decode steps and the HybridCacheManager for
+placement decisions.  The engine runs on the card unless the caller passes
+``device="cpu"``; its params must already sit on that device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import get_model
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import _device
+from .cache_manager import CacheConfig, HybridCacheManager
+
+
+@dataclasses.dataclass
+class Request:
+    seq_id: int
+    prompt: torch.Tensor       # (S,) int
+    max_new_tokens: int = 16
+    output: list[int] = dataclasses.field(default_factory=list)
+
+
+class ServeEngine:
+    def __init__(self, cfg: ArchConfig, params, *, max_len: int = 512, batch_size: int = 4,
+                 device=None):
+        self.device = _device(device)
+        if any(p.device.type != self.device.type for p in params.parameters()):
+            raise ValueError(f"ServeEngine: params must be on {self.device.type}")
+        self.cfg = cfg
+        self.model = get_model(cfg)
+        self.params = params
+        self.max_len = max_len
+        self.batch_size = batch_size
+        bytes_per_token = (
+            2 * max(cfg.num_kv_heads, 1) * cfg.resolved_head_dim * 2 * cfg.num_layers
+        )
+        self.cache_mgr = HybridCacheManager(CacheConfig(
+            bytes_per_token=bytes_per_token, slab_tokens=min(max_len // 2, 512),
+            arena_tokens=max_len * batch_size,
+        ))
+
+    def _decode(self, params, cache, tok):
+        return self.model.decode_step(self.cfg, params, cache, tok)
+
+    def run_batch(self, requests: list[Request]) -> list[Request]:
+        """Prefill a uniform batch then greedy-decode to completion."""
+        assert len(requests) <= self.batch_size
+        for r in requests:
+            alloc = self.cache_mgr.admit(r.seq_id, len(r.prompt) + r.max_new_tokens)
+            if alloc is None:
+                raise RuntimeError("admission control: cache pool exhausted")
+        prompts = torch.stack([r.prompt for r in requests]).to(self.device)
+        batch = {"tokens": prompts}
+        logits, cache = self.model.prefill(self.cfg, self.params, batch, self.max_len)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        steps = max(r.max_new_tokens for r in requests)
+        for step in range(steps):
+            toks = tok[:, 0].tolist()
+            for i, r in enumerate(requests):
+                if len(r.output) < r.max_new_tokens:
+                    r.output.append(toks[i])
+                    self.cache_mgr.extend(r.seq_id, len(r.prompt) + len(r.output))
+            if all(len(r.output) >= r.max_new_tokens for r in requests):
+                break
+            logits, cache = self._decode(self.params, cache, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        for r in requests:
+            self.cache_mgr.release(r.seq_id)
+        return requests
