@@ -3,10 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port's serving path from the sources beside
-this file, holds each against its plain PyTorch version on the card, then
-serves two batches with mamba2-780m at full width (random weights from seed 0)
-through ``ServeEngine`` and checks that the path went through the kernels.
+Builds every CUDA kernel of the port from the sources beside this file (one
+``nvcc`` per source, started together) and holds each against its plain
+PyTorch version on the card.  Then it drives the port's paths at full width,
+with random weights from seed 0, and checks that each went through its kernel:
+
+- mamba2-780m serves two batches through ``ServeEngine`` (48 ``ssd_scan``
+  launches per prefill);
+- qwen2.5-3b runs ``forward`` and ``loss_fn`` with ``attention_impl="flash"``
+  (36 ``flash_attention`` launches per call), and an f32 twin holds the
+  kernel path against the plain attention;
+- qwen2.5-3b serves two batches through ``ServeEngine`` (no kernel launch:
+  prefill and decode use the plain attention, as in the reference).
+
 Prints one JSON line per phase; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero, with no
 result, when there is no card or when this file stands outside the repository.
@@ -18,6 +27,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +49,21 @@ TEST_SHAPES = [  # tests/test_kernels.py's ssd sweep: G=2 and a single chunk amo
 # y at the reference tests' bars (f32: 2e-4, bf16: 2e-2); the state is f32 in
 # both versions, so in bf16 only the order of its sums differs
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 1e-3)}
+
+FA_FORWARD_SHAPE = dict(b=4, s=1024, h=16, kh=2, d=128)  # qwen2.5-3b forward, 4 x 1024 tokens
+FA_TEST_SHAPES = [  # tests/test_kernels.py's flash sweep and its window case, then a ragged S
+    dict(b=1, s=128, h=4, kh=2, d=32),
+    dict(b=2, s=256, h=8, kh=2, d=64),
+    dict(b=1, s=256, h=4, kh=4, d=32),
+    dict(b=1, s=512, h=2, kh=1, d=64),
+    dict(b=2, s=128, h=4, kh=2, d=32, window=32),
+    dict(b=2, s=1000, h=16, kh=2, d=128),
+]
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference tests' bars, abs and rel
+# bf16 kernel against the float32 plain version of its own inputs: the kernel
+# computes in float32 and rounds only its output, so each element lies within
+# twice bfloat16's unit roundoff (2**-8) of that version, plus float32 noise
+FA_BF16_VS_F32 = dict(atol=1e-5, rtol=2**-7)
 
 
 def fail(msg: str) -> None:
@@ -116,7 +141,7 @@ def check_ssd(shape, dtype, seed) -> float:
     return (y.float() - y_ref).abs().max().item()
 
 
-def phase_kernels() -> dict:
+def phase_ssd_kernel() -> dict:
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -160,6 +185,133 @@ def phase_kernels() -> dict:
     }
 
 
+def profile(fn, top: int = 6) -> dict:
+    """One call of fn under torch.profiler: host wall ms, the device's busy ms
+    (the union of kernel intervals), its idle share, and the kernels that took
+    the most device time.  The profiler slows the host, so the idle share is
+    an upper bound.  Device numbers are null where the trace holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"wall_ms": wall_ms, "device_busy_ms": None, "idle_share": None, "kernels": 0, "top": []}
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / 1e3 / wall_ms,
+            "kernels": len(kernels), "top": [{"name": n, "ms": t} for n, t in ranked]}
+
+
+def fa_inputs(b, s, h, kh, d, seed, dtype):
+    r = np.random.default_rng(seed)
+    return [
+        torch.tensor(r.standard_normal(shape), dtype=torch.float32, device="cuda").to(dtype)
+        for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d))
+    ]
+
+
+def fa_bound(b, s, h, kh, d, dtype):
+    """(bound_ms, bound_by, bytes, flops) of one causal call: q, k, v read and o
+    written once; two products of 2*D operations per (q, k) pair the mask keeps."""
+    e = torch.finfo(dtype).bits // 8
+    nbytes = e * (2 * b * s * h * d + 2 * b * s * kh * d)
+    flops = b * h * (s * (s + 1) // 2) * 4 * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def check_fa(shape, dtype, seed) -> tuple[float, float | None]:
+    """Kernel (through ops.flash_attention) against the plain version; returns
+    max |do| and, in bf16, ||o - ref32|| / ||ref32|| against the float32 plain
+    version of the same inputs."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    window = shape.get("window", 0)
+    q, k, v = fa_inputs(*(shape[x] for x in "b s h kh d".split()), seed, dtype)
+    out = ops.flash_attention(q, k, v, window=window)
+    ref = flash_attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    where = f"flash_attention {shape} {dtype}"
+    if out.dtype != dtype or out.shape != q.shape:
+        fail(f"{where}: got {out.dtype}{tuple(out.shape)}")
+    tol = FA_TOL[dtype]
+    if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
+        fail(f"{where}: differs from the plain version by {(out.float() - ref.float()).abs().max().item()}")
+    rel = None
+    if dtype == torch.bfloat16:
+        ref32 = flash_attention_ref(q.float(), k.float(), v.float(), window=window)
+        rel = ((out.float() - ref32).norm() / ref32.norm()).item()
+        if not torch.allclose(out.float(), ref32, **FA_BF16_VS_F32):
+            fail(f"{where}: differs from the float32 plain version by {(out.float() - ref32).abs().max().item()}")
+    return (out.float() - ref.float()).abs().max().item(), rel
+
+
+def phase_fa_kernel() -> dict:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    errs, rels = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype], rels[dtype] = check_fa(FA_FORWARD_SHAPE, dtype, seed=0)
+        for i, shape in enumerate(FA_TEST_SHAPES):
+            check_fa(shape, dtype, seed=1 + i)
+    # causality (tests/test_kernels.py): a changed tail leaves earlier rows as they were
+    q, k, v = fa_inputs(1, 128, 2, 2, 32, 1, torch.float32)
+    out1 = ops.flash_attention(q, k, v)
+    k[:, 100:], v[:, 100:] = 99.0, -99.0
+    out2 = ops.flash_attention(q, k, v)
+    if not torch.allclose(out1[:, :100], out2[:, :100], atol=1e-6, rtol=0):
+        fail("flash_attention: rows before a changed tail moved")
+
+    sh = FA_FORWARD_SHAPE
+    timing = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = fa_inputs(*sh.values(), 0, dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, D) views for SDPA
+        kernel_ms = cuda_ms(lambda: ops.flash_attention(q, k, v), iters=50)
+        ref_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=10)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=50)
+        bound_ms, bound_by, nbytes, flops = fa_bound(*sh.values(), dtype)
+        timing[dtype] = dict(ms=kernel_ms, plain_ms=ref_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bytes=nbytes, flops=flops)
+    bf, f32 = timing[torch.bfloat16], timing[torch.float32]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+        "launches": None,  # filled from the forward phase
+        "max_abs_err": errs[torch.bfloat16],
+        "rel_err_vs_f32": rels[torch.bfloat16],
+        "ms": bf["ms"],
+        "plain_ms": bf["plain_ms"],
+        "bound_ms": bf["bound_ms"],
+        "bound_by": bf["bound_by"],
+        "library_ms": bf["library_ms"],  # F.scaled_dot_product_attention, a yardstick only
+        "shape": sh,
+        "dtype": "bfloat16",
+        "bytes": bf["bytes"],
+        "flops": bf["flops"],
+        "f32": {"max_abs_err": errs[torch.float32], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+                "library_ms": f32["library_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"]},
+    }
+
+
 def check_model_f32(cfg, params) -> dict:
     """Full-width model in float32 on a small input: the kernel path against the
     same model with the plain scan, and prefill(S) against prefill(S-1) + decode."""
@@ -195,16 +347,10 @@ def check_model_f32(cfg, params) -> dict:
     return {"logit_scale": scale, "err_vs_plain_scan": err_ref, "err_prefill_vs_decode": err_dec}
 
 
-def phase_serve() -> tuple[dict, int]:
-    from repro_torch.configs import ARCHS
-    from repro_torch.kernels.ssd_scan import ops
-    from repro_torch.models import get_model
+def serve_batches(cfg, params) -> dict:
+    """Two batches of 4 requests (prompts of 1024, then 1000 tokens; 32 new
+    tokens each) through ServeEngine; times prefill and each decode step."""
     from repro_torch.serve.engine import Request, ServeEngine
-
-    cfg = ARCHS["mamba2-780m"]
-    params = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    n_params = sum(p.numel() for p in params.parameters())
-    model_check = check_model_f32(cfg, params)
 
     eng = ServeEngine(cfg, params, max_len=2048, batch_size=4, device="cuda")
     times, last = {"prefill": [], "decode": []}, {}
@@ -225,8 +371,7 @@ def phase_serve() -> tuple[dict, int]:
     rng = np.random.default_rng(0)
     new_tokens, sid, batches = 32, 0, []
     torch.cuda.reset_peak_memory_stats()
-    ops.LAUNCHES = 0
-    for prompt_len in (1024, 1000):  # 4 chunks of 256; 1000 is padded to them
+    for prompt_len in (1024, 1000):
         reqs = []
         for _ in range(4):
             prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, prompt_len), dtype=torch.int64)
@@ -240,10 +385,7 @@ def phase_serve() -> tuple[dict, int]:
                 fail(f"request {r.seq_id}: {len(r.output)} tokens, range {min(r.output)}..{max(r.output)}")
         batches.append({"prompt_len": prompt_len, "requests": len(done), "wall_s": wall,
                         "tokens_per_s": sum(len(r.output) for r in done) / wall})
-    launches = ops.LAUNCHES
 
-    if launches != 2 * cfg.num_layers:
-        fail(f"ssd_scan launched {launches} times in serving, expected {2 * cfg.num_layers}")
     if eng.cache_mgr.stats()["active"] != 0:
         fail(f"cache manager still holds {eng.cache_mgr.stats()['active']} sequences")
     logits = last["decode"][0]  # the step that produced each request's last token
@@ -251,17 +393,148 @@ def phase_serve() -> tuple[dict, int]:
         fail(f"last logits: shape {tuple(logits.shape)} or NaN")
     steps = len(times["decode"]) // 2
     return {
-        "phase": "serve",
-        "arch": cfg.name,
-        "params": n_params,
         "batches": batches,
         "prefill_ms": [t * 1e3 for t in times["prefill"][:2]],
         "decode_ms_per_token": [sum(times["decode"][i * steps:(i + 1) * steps]) / steps * 1e3 for i in range(2)],
-        "ssd_scan_launches": launches,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_serve_mamba2() -> tuple[dict, int]:
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models import get_model
+
+    cfg = ARCHS["mamba2-780m"]
+    params = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    model_check = check_model_f32(cfg, params)
+
+    ops.LAUNCHES = 0
+    served = serve_batches(cfg, params)  # 4 chunks of 256; 1000 is padded to them
+    launches = ops.LAUNCHES
+    if launches != 2 * cfg.num_layers:
+        fail(f"ssd_scan launched {launches} times in serving, expected {2 * cfg.num_layers}")
+    return {
+        "phase": "serve",
+        "arch": cfg.name,
+        "params": n_params,
+        **served,
+        "ssd_scan_launches": launches,
         "model_check_f32": model_check,
         "nvidia_smi": smi(),
     }, launches
+
+
+def check_dense_f32(cfg, params) -> dict:
+    """Full-width dense model in float32 on (2, 256) tokens: forward through the
+    flash kernel against the same weights through the plain attention, and
+    prefill(S) against prefill(S-1) + decode."""
+    from repro_torch.models import get_model
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    m = get_model(cfg32)
+    p32 = m.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    p32.load_state_dict(params.state_dict())  # the same weights, computing in float32
+    tokens = torch.as_tensor(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 256)), dtype=torch.int64, device="cuda"
+    )
+    flash, _ = m.forward(dataclasses.replace(cfg32, attention_impl="flash"), p32, {"tokens": tokens})
+    plain, _ = m.forward(dataclasses.replace(cfg32, attention_impl="xla"), p32, {"tokens": tokens})
+    _, cache = m.prefill(cfg32, p32, {"tokens": tokens[:, :-1]}, 512)
+    dec, _ = m.decode_step(cfg32, p32, cache, tokens[:, -1:])
+    del p32, cache
+    torch.cuda.synchronize()
+    if not torch.isfinite(flash).all():
+        fail("f32 dense forward: logits not finite")
+    scale = plain.abs().max().item()
+    err = (flash - plain).abs().max().item()
+    err_dec = (dec - plain[:, -1:]).abs().max().item()
+    if err > 1e-3 * scale or err_dec > 1e-3 * scale:
+        fail(f"f32 dense check: |flash - plain| {err}, |prefill - decode| {err_dec}, scale {scale}")
+    return {"logit_scale": scale, "err_flash_vs_plain": err, "err_prefill_vs_decode": err_dec}
+
+
+def phase_dense() -> tuple[dict, dict, int]:
+    """qwen2.5-3b at full width: forward and loss_fn through the kernel, then serving."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import get_model
+
+    cfg = ARCHS["qwen2.5-3b"]
+    m = get_model(cfg)
+    params = m.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    model_check = check_dense_f32(cfg, params)
+
+    fcfg = dataclasses.replace(cfg, attention_impl="flash")
+    tokens = torch.as_tensor(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 1024)), dtype=torch.int64, device="cuda"
+    )
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    calls = {  # the first forward warms cuBLAS and the allocator; the second is timed warm
+        "forward_cold": lambda: m.forward(fcfg, params, batch)[0],
+        "forward": lambda: m.forward(fcfg, params, batch)[0],
+        "loss_fn": lambda: m.loss_fn(fcfg, params, batch),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ms, per_call, out = {}, {}, {}
+    ops.LAUNCHES = 0
+    for name, fn in calls.items():
+        before = ops.LAUNCHES
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        per_call[name] = ops.LAUNCHES - before
+    launches = ops.LAUNCHES
+    if any(n != cfg.num_layers for n in per_call.values()):
+        fail(f"flash_attention launches per call {per_call}, expected {cfg.num_layers} each")
+    logits, loss = out["forward"], out["loss_fn"]
+    if logits.shape != (4, 1024, cfg.vocab_padded) or not torch.isfinite(logits).all():
+        fail(f"forward logits: shape {tuple(logits.shape)} or not finite")
+    if loss.shape != () or not torch.isfinite(loss):
+        fail(f"loss_fn: {loss}")
+    del logits, out
+    forward = {
+        "phase": "dense_forward",
+        "arch": fcfg.name,
+        "attention_impl": fcfg.attention_impl,
+        "params": n_params,
+        "tokens": list(tokens.shape),
+        "ms": ms,
+        "loss": loss.item(),
+        "flash_attention_launches_per_call": per_call,
+        "flash_attention_launches": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "model_check_f32": model_check,
+    }
+
+    ops.LAUNCHES = 0
+    served = serve_batches(cfg, params)
+    serve_launches = ops.LAUNCHES
+    if serve_launches != 0:
+        fail(f"flash_attention launched {serve_launches} times in serving, expected 0")
+
+    # where the time goes, outside the counted runs: forward, loss_fn and one decode step
+    _, cache = m.prefill(cfg, params, {"tokens": tokens}, 2048)
+    forward["profile"] = profile(lambda: m.forward(fcfg, params, batch))
+    forward["loss_fn_profile"] = profile(lambda: m.loss_fn(fcfg, params, batch))
+    step = profile(lambda: m.decode_step(cfg, params, cache, tokens[:, -1:]))
+    del cache
+    hd, e = cfg.resolved_head_dim, torch.finfo(torch.bfloat16).bits // 8
+    serve = {
+        "phase": "serve_dense",
+        "arch": cfg.name,
+        "params": n_params,
+        **served,
+        "flash_attention_launches": serve_launches,
+        "kv_cache_bytes": cfg.num_layers * 2 * 4 * 2048 * cfg.num_kv_heads * hd * e,  # from the shapes
+        "decode_step_profile": step,
+        "nvidia_smi": smi(),
+    }
+    return forward, serve, launches
 
 
 def main() -> None:
@@ -270,23 +543,31 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.ssd_scan import kernel
+    from repro_torch.kernels import _nvcc
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = smi()
     t0 = time.perf_counter()
-    kernel.build()
+    kernels = {"ssd_scan": ssd_kernel, "flash_attention": fa_kernel}
+    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, all at once
+        list(pool.map(lambda k: k.build(), kernels.values()))
     emit({"phase": "device", "nvidia_smi": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for ln in kernel.BUILD_LOG.splitlines() if "registers" in ln]})
+          "ptxas": {name: [ln.strip() for ln in _nvcc.BUILD_LOGS.get(name, "").splitlines()
+                           if "registers" in ln or "spill" in ln] for name in kernels}})
 
-    ssd_row = phase_kernels()
-    serve, launches = phase_serve()
+    ssd_row = phase_ssd_kernel()
+    fa_row = phase_fa_kernel()
+    serve, ssd_row["launches"] = phase_serve_mamba2()
     emit(serve)
-    ssd_row["launches"] = launches
-    emit({"kernels": [ssd_row]})
+    forward, serve_dense, fa_row["launches"] = phase_dense()
+    emit(forward)
+    emit(serve_dense)
+    emit({"kernels": [ssd_row, fa_row]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

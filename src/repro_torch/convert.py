@@ -3,8 +3,9 @@
 ``tree`` is the reference's nested dict of numpy arrays
 (``jax.tree.map(np.asarray, params)``).  Stacked leaves under ``layers`` have
 the layer index as their leading axis: ``layers/ssm/wz[i]`` fills
-``layers.{i}.ssm.wz``.  Every other leaf maps by its path, with ``/`` for
-``.`` (``embedding/embed``, ``final_norm/scale``).
+``layers.{i}.ssm.wz`` and ``layers/attn/wq[i]`` fills ``layers.{i}.attn.wq``.
+Every other leaf maps by its path, with ``/`` for ``.`` (``embedding/embed``,
+``final_norm/scale``).  With tied embeddings neither side has ``unembed``.
 """
 from __future__ import annotations
 

@@ -1,64 +1,26 @@
-"""Build and launch the SSD chunked-scan CUDA kernel (``csrc/ssd_scan.cu``).
+"""Launch the SSD chunked-scan CUDA kernel (``csrc/ssd_scan.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C entry point, loaded with ``ctypes``.  The build happens at the
-first launch (or an explicit ``build()``), into ``build/kernels/`` at the
-repository root, named by a hash of the source and flags so that an edited
-source is rebuilt.  Importing this module needs no compiler and no card.
+``build()`` compiles the source with ``nvcc`` for ``sm_90a`` at the first
+launch, through ``kernels/_nvcc.py``.  Importing this module needs no
+compiler and no card.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from .._nvcc import load
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 TILE = 16  # the kernel needs the chunk length to be a multiple of this
 
-_lib: ctypes.CDLL | None = None
-BUILD_LOG = ""  # ptxas' report (registers, shared memory, spills) of the last build
 
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("ssd_scan: nvcc not found; the CUDA kernel cannot be built")
-    return path
-
-
-def build() -> ctypes.CDLL:
-    """Compile (if not yet built) and load the kernel library; raises on failure."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"ssd_scan_{digest}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"ssd_scan: nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        BUILD_LOG = proc.stderr
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.ssd_scan_launch.restype = ctypes.c_int
-    _lib = lib
-    return lib
+def build() -> ctypes._CFuncPtr:
+    """Compile (if not yet built) and load the kernel's entry point; raises on failure."""
+    return load(SOURCE, "ssd_scan_launch", ARGTYPES)
 
 
 def ssd_scan_cuda(
@@ -96,11 +58,11 @@ def ssd_scan_cuda(
             f"ssd_scan_cuda: needs chunk % {TILE} == 0, S % chunk == 0, P % 4 == 0, N % 4 == 0; "
             f"got chunk={chunk} S={s} P={p} N={n}"
         )
-    lib = build()
+    launch = build()
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.ssd_scan_launch(
+    rc = launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
         y.data_ptr(), state.data_ptr(), b, s, h, p, g, n, chunk,
         int(x.dtype == torch.bfloat16), stream,

@@ -2,6 +2,7 @@
 
 ``get_model(cfg)`` returns a namespace with:
     init_params(cfg, generator, device) -> LM / forward(cfg, params, batch) -> (logits, aux)
+    loss_fn(cfg, params, batch) -> scalar loss (batch holds "tokens" and "labels")
     init_cache(cfg, batch, max_len, dtype, device)
     prefill(cfg, params, batch, max_len) -> (last_logits, cache)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
@@ -19,6 +20,7 @@ def get_model(cfg: ArchConfig):
     return types.SimpleNamespace(
         init_params=transformer.init_params,
         forward=transformer.forward,
+        loss_fn=transformer.loss_fn,
         init_cache=transformer.init_cache,
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,

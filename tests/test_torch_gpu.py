@@ -8,12 +8,15 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.ssd_scan import kernel, ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 pytestmark = pytest.mark.gpu
 
-# f32 bar of the reference's kernel tests; bf16 y at its bf16 bar; the state
+# ssd: f32 bar of the reference's kernel tests; bf16 y at its bf16 bar; the state
 # stays f32 in both versions, so only the order of the sums differs there.
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 1e-3)}
 
@@ -21,7 +24,7 @@ TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 1e-3)}
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the SSD scan kernel runs only there")
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -86,3 +89,77 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
         kernel.ssd_scan_cuda(x, dt, a, bm.to(torch.bfloat16), cm, chunk=16)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.ssd_scan_cuda(x.cpu(), dt, a, bm, cm, chunk=16)
+
+
+# ------------------------------------------------------------ flash attention
+# The reference's kernel-test bars (tests/test_kernels.py): abs and rel.
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _fa_inputs(b, s, h, kh, d, seed, dtype, device):
+    r = np.random.default_rng(seed)
+    return [
+        torch.tensor(r.standard_normal(shape), dtype=torch.float32, device=device).to(dtype)
+        for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d))
+    ]
+
+
+@pytest.mark.parametrize(
+    "b,s,h,kh,d,window",
+    [
+        (1, 128, 4, 2, 32, 0),
+        (2, 256, 8, 2, 64, 0),
+        (1, 256, 4, 4, 32, 0),     # MHA
+        (1, 512, 2, 1, 64, 0),     # MQA
+        (2, 128, 4, 2, 32, 32),    # sliding window
+        (2, 1000, 4, 2, 128, 0),   # ragged S, the head dim of qwen2.5-3b
+        (1, 77, 2, 1, 24, 20),     # ragged S and window, D % 16 != 0
+        (4, 1024, 16, 2, 128, 0),  # the forward shape of qwen2.5-3b
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_ref(cuda, b, s, h, kh, d, window, dtype):
+    q, k, v = _fa_inputs(b, s, h, kh, d, b * s + h, dtype, cuda)
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=FA_TOL[dtype], rtol=FA_TOL[dtype])
+    if dtype == torch.bfloat16:
+        # the kernel computes in float32 and rounds only its output: each element
+        # lies within twice bfloat16's unit roundoff of the float32 plain version
+        ref32 = flash_attention_ref(q.float(), k.float(), v.float(), window=window)
+        torch.testing.assert_close(out.float(), ref32, atol=1e-5, rtol=2**-7)
+
+
+def test_flash_kernel_is_causal(cuda):
+    q, k, v = _fa_inputs(1, 128, 2, 2, 32, 1, torch.float32, cuda)
+    out1 = fa_kernel.flash_attention_cuda(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 100:] = 99.0
+    v2[:, 100:] = -99.0
+    out2 = fa_kernel.flash_attention_cuda(q, k2, v2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out1[:, :100], out2[:, :100], atol=1e-6, rtol=0)
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(cuda):
+    q, k, v = _fa_inputs(1, 64, 4, 2, 136, 0, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.flash_attention_cuda(q, k, v)
+    q, k, v = _fa_inputs(1, 64, 4, 2, 20, 0, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.flash_attention_cuda(q, k, v)
+    q, k, v = _fa_inputs(1, 64, 4, 2, 32, 0, torch.float16, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention_cuda(q, k, v)
+    q, k, v = _fa_inputs(1, 64, 4, 2, 32, 0, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention_cuda(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention_cuda(q.cpu(), k, v)
+    q3, k3, v3 = _fa_inputs(1, 64, 6, 4, 32, 0, torch.float32, cuda)
+    with pytest.raises(ValueError, match="agree"):
+        fa_kernel.flash_attention_cuda(q3, k3, v3)

@@ -93,17 +93,49 @@ def test_functions_refuse_a_config_the_params_were_not_built_for():
         m.forward(other, params, {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
 
 
+def test_dense_functions_refuse_another_config_but_take_another_attention_impl():
+    cfg = ARCHS["qwen2.5-3b"].reduced()
+    m = get_model(cfg)
+    params = m.init_params(cfg, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="qkv_bias"):
+        m.forward(dataclasses.replace(cfg, qkv_bias=False), params, {"tokens": tokens})
+    # attention_impl picks the kernel per call and is built into no module
+    flash, _ = m.forward(dataclasses.replace(cfg, attention_impl="flash"), params, {"tokens": tokens})
+    torch.testing.assert_close(flash, m.forward(cfg, params, {"tokens": tokens})[0])
+
+
 def test_unported_families_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(ARCHS["qwen2.5-3b"].reduced())
+        get_model(ARCHS["deepseek-moe-16b"].reduced())
 
 
-def test_launcher_runs_on_cpu():
+def _run_launcher(*args: str) -> None:
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mamba2-780m", "--device", "cpu"],
+        [sys.executable, "-m", "repro_torch.launch.serve", *args, "--device", "cpu"],
         capture_output=True, text=True, env=ENV, timeout=300, cwd=ROOT,
     )
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     assert sum(ln.startswith("batch ") and "generated 64 tokens" in ln for ln in lines) == 3
     assert "'active': 0" in lines[0] and lines[-1].startswith("throughput:")
+
+
+def test_launcher_runs_on_cpu():
+    _run_launcher("--arch", "mamba2-780m")
+
+
+def test_launcher_runs_on_cpu_with_its_default_arch():
+    _run_launcher()  # qwen2.5-3b, the reference launcher's default too
+
+
+def test_flash_refuses_padded_heads_whose_kv_map_differs():
+    """ROADMAP fault (c): with padded q heads the kernel's h // (H/K) is not kv_head_map."""
+    cfg = dataclasses.replace(ARCHS["yi-34b"].reduced(), num_heads=6, orig_num_heads=4, attention_impl="flash")
+    m = get_model(cfg)
+    params = m.init_params(cfg, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match=r"fault \(c\)"):
+        m.forward(cfg, params, {"tokens": tokens})
+    plain = dataclasses.replace(cfg, attention_impl="xla")  # the plain path follows kv_head_map
+    assert torch.isfinite(m.forward(plain, params, {"tokens": tokens})[0]).all()
