@@ -14,7 +14,13 @@ with random weights from seed 0, and checks that each went through its kernel:
   (36 ``flash_attention`` launches per call), and an f32 twin holds the
   kernel path against the plain attention;
 - qwen2.5-3b serves two batches through ``ServeEngine`` (no kernel launch:
-  prefill and decode use the plain attention, as in the reference).
+  prefill and decode use the plain attention, as in the reference);
+- ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
+  compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
+- the store engine (``repro_torch.api``, on the host as in the reference)
+  reproduces the fig5 smoke rows of ``BENCH_BASELINE.json``, reads back every
+  acknowledged write after GC, crash and recover, and classifies 2^24 sizes
+  on the card exactly as on the CPU.
 
 Prints one JSON line per phase; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero, with no
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -64,6 +71,16 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference tests' bar
 # computes in float32 and rounds only its output, so each element lies within
 # twice bfloat16's unit roundoff (2**-8) of that version, plus float32 noise
 FA_BF16_VS_F32 = dict(atol=1e-5, rtol=2**-7)
+
+
+MERGE_BENCH_SHAPE = dict(g=64, t=512)  # benchmarks/bench_kernels.py's merge tiles
+# ~8.4M keys a side: about the L2 of a store with the paper's 128 MB L0, growth 4
+# and SD's 251-B mean KV (benchmarks/common.py)
+MERGE_COMPACTION_SHAPE = dict(g=16384, t=512)
+MERGE_TEST_SHAPES = [(8, 64), (16, 128), (8, 256), (32, 32), (1, 512)]  # tests/test_kernels.py's sweep
+MERGE_RUNS = (2_097_152, 8_388_608)  # merge_sorted_runs: an L1 run into an L2 run
+KEY_DTYPES = (torch.int32, torch.uint32, torch.float32)
+CLASSIFY_PAIRS = 1 << 24
 
 
 def fail(msg: str) -> None:
@@ -312,6 +329,281 @@ def phase_fa_kernel() -> dict:
     }
 
 
+def merge_inputs(g, t, key_dtype, seed, val_dtype=torch.int32, distinct=0):
+    """Two (g, t) ascending key tiles and their payloads, on the card.  With
+    ``distinct``, keys are drawn from that many values, so runs share keys."""
+    r = np.random.default_rng(seed)
+
+    def keys():
+        if key_dtype == torch.float32:
+            k = r.standard_normal((g, t)).astype(np.float32)
+        elif distinct:
+            k = r.integers(0, distinct, (g, t)).astype(np.int64)
+        elif key_dtype == torch.uint32:  # about half with the top bit set
+            k = r.integers(0, 1 << 32, (g, t), dtype=np.uint64).astype(np.int64)
+        else:
+            k = r.integers(-(1 << 31), 1 << 31, (g, t)).astype(np.int64)
+        k = np.sort(k, axis=1)
+        if key_dtype == torch.float32:
+            return torch.from_numpy(k)
+        npt = np.uint32 if key_dtype == torch.uint32 else np.int32
+        return torch.from_numpy(k.astype(npt))
+
+    def vals():
+        v = r.standard_normal((g, t)).astype(np.float32) if val_dtype == torch.float32 else \
+            r.integers(-(1 << 31), 1 << 31, (g, t)).astype(np.int32)
+        return torch.from_numpy(v)
+
+    return [x.to("cuda") for x in (keys(), keys(), vals(), vals())]
+
+
+def pair_multisets(keys, vals):
+    """Per row, the sorted (key bits, payload bits) pairs as int64: equal for two
+    results exactly when their rows hold the same (key, payload) multisets."""
+    from repro_torch.kernels.merge_runs.ref import words
+
+    return torch.sort((words(keys).to(torch.int64) << 32) | (words(vals).to(torch.int64) & 0xFFFFFFFF), dim=1)[0]
+
+
+def check_merge(g, t, key_dtype, seed, val_dtype=torch.int32, distinct=0) -> float:
+    """Kernel against the plain version: keys exactly equal, equal (key,
+    payload) multisets per row (the order among equal keys is left open).
+    Returns the largest |key - plain key|."""
+    from repro_torch.kernels.merge_runs import kernel
+    from repro_torch.kernels.merge_runs.ref import merge_runs_ref, sort_key, words
+
+    args = merge_inputs(g, t, key_dtype, seed, val_dtype, distinct)
+    ok, ov = kernel.merge_runs_cuda(*args)
+    rk, rv = merge_runs_ref(*args)
+    torch.cuda.synchronize()
+    where = f"merge_runs g={g} t={t} keys {key_dtype} payloads {val_dtype} distinct={distinct}"
+    if ok.dtype != key_dtype or ov.dtype != val_dtype or ok.shape != (g, 2 * t) or ov.shape != (g, 2 * t):
+        fail(f"{where}: got {ok.dtype}{tuple(ok.shape)}, {ov.dtype}{tuple(ov.shape)}")
+    if not torch.equal(words(ok), words(rk)):
+        bad = (words(ok) != words(rk)).sum().item()
+        fail(f"{where}: {bad} keys differ from the plain version")
+    if not torch.equal(pair_multisets(ok, ov), pair_multisets(rk, rv)):
+        fail(f"{where}: (key, payload) pairs differ from the plain version's")
+    return (sort_key(ok).double() - sort_key(rk).double()).abs().max().item()
+
+
+def merge_bound(g, t) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, operations) of one merge: four (g, t) 32-bit
+    inputs read and two (g, 2t) outputs written once; g*t*log2(2t)
+    compare-exchanges at the 32-bit CUDA-core rate."""
+    nbytes = 4 * 4 * g * t + 2 * 4 * g * 2 * t
+    ops = g * t * int(math.log2(2 * t))
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def time_merge(g, t) -> dict:
+    """Kernel, plain version and torch.sort(stable) of the concatenated keys
+    (the library yardstick, keys only), int32 keys and payloads."""
+    from repro_torch.kernels.merge_runs import kernel
+    from repro_torch.kernels.merge_runs.ref import merge_runs_ref
+
+    args = merge_inputs(g, t, torch.int32, 0)
+    cat = torch.cat(args[:2], dim=1)
+    kernel_ms = cuda_ms(lambda: kernel.merge_runs_cuda(*args), iters=50)
+    plain_ms = cuda_ms(lambda: merge_runs_ref(*args), iters=10)
+    lib_ms = cuda_ms(lambda: torch.sort(cat, dim=1, stable=True), iters=50)
+    # one launch under the profiler: the kernel's own device time, without the
+    # host's share of back-to-back calls (the wrapper's checks, ctypes, allocation)
+    device_ms = profile(lambda: kernel.merge_runs_cuda(*args))["device_busy_ms"]
+    bound_ms, bound_by, nbytes, ops = merge_bound(g, t)
+    return dict(shape=dict(g=g, t=t), ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                kernel_device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                compare_exchanges=ops)
+
+
+def phase_merge_kernel() -> dict:
+    from repro_torch.kernels.merge_runs import kernel
+
+    errs = []
+    for i, (g, t) in enumerate(MERGE_TEST_SHAPES):
+        for key_dtype in KEY_DTYPES:
+            errs.append(check_merge(g, t, key_dtype, seed=1 + i))
+    for key_dtype in KEY_DTYPES:
+        for val_dtype in (torch.int32, torch.float32):
+            errs.append(check_merge(8, 128, key_dtype, seed=20, val_dtype=val_dtype))
+        errs.append(check_merge(1000, 1, key_dtype, seed=21))  # T = 1
+        errs.append(check_merge(20, kernel.MAX_T, key_dtype, seed=22))  # T = 8192: 128 KB of shared memory
+        errs.append(check_merge(13, 64, key_dtype, seed=23))  # G not a multiple of 8
+        errs.append(check_merge(1001, 2, key_dtype, seed=24))  # a last block with one row of its 128
+    for g, t, distinct in ((64, 512, 4), (3, 8192, 2), (700, 4, 3)):  # runs that share keys
+        errs.append(check_merge(g, t, torch.int32, seed=25, distinct=distinct))
+        errs.append(check_merge(g, t, torch.uint32, seed=26, distinct=distinct))
+    # the duplicates case of tests/test_kernels.py
+    dk = [torch.tensor([row], dtype=torch.int32, device="cuda") for row in
+          ([1, 1, 2, 2, 3, 3, 4, 4], [1, 2, 2, 3, 3, 3, 5, 9])]
+    dv = [torch.arange(8, dtype=torch.int32, device="cuda")[None] + off for off in (0, 100)]
+    out, _ = kernel.merge_runs_cuda(*dk, *dv)
+    if out[0].tolist() != sorted(dk[0][0].tolist() + dk[1][0].tolist()):
+        fail(f"merge_runs duplicates case: {out[0].tolist()}")
+    for shape in (MERGE_BENCH_SHAPE, MERGE_COMPACTION_SHAPE):
+        for key_dtype in KEY_DTYPES:
+            errs.append(check_merge(shape["g"], shape["t"], key_dtype, seed=30))
+    try:
+        kernel.merge_runs_cuda(*merge_inputs(2, 2 * kernel.MAX_T, torch.int32, 0))
+        fail("merge_runs accepted T = 16384, beyond its shared-memory limit")
+    except ValueError:
+        pass
+
+    compaction = time_merge(**MERGE_COMPACTION_SHAPE)
+    bench = time_merge(**MERGE_BENCH_SHAPE)
+    return {
+        "name": "merge_runs",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/merge_runs/csrc/merge_runs.cu",
+        "replaces": "src/repro/kernels/merge_runs/kernel.py:64",
+        "launches": None,  # filled from the merge path
+        "max_abs_err": max(errs),  # over every key checked; each row's (key, payload) multiset also equal
+        "ms": compaction["ms"],
+        "plain_ms": compaction["plain_ms"],
+        "bound_ms": compaction["bound_ms"],
+        "bound_by": compaction["bound_by"],
+        "library_ms": compaction["library_ms"],  # torch.sort(stable=True) of the keys alone, a yardstick only
+        "kernel_device_ms": compaction["kernel_device_ms"],
+        "shape": compaction["shape"],
+        "dtype": "int32 keys, int32 payloads",
+        "bytes": compaction["bytes"],
+        "compare_exchanges": compaction["compare_exchanges"],
+        "bench_shape": bench,
+    }
+
+
+def phase_merge_path() -> tuple[dict, int]:
+    """merge_tiles through the kernel at the bench and compaction shapes, then
+    merge_sorted_runs (plain PyTorch, as in the reference) of an L1 run into an L2 run."""
+    from repro_torch.kernels.merge_runs import ops
+    from repro_torch.kernels.merge_runs.ref import merge_runs_ref, words
+
+    shapes = (MERGE_BENCH_SHAPE, MERGE_COMPACTION_SHAPE)
+    inputs = [merge_inputs(sh["g"], sh["t"], torch.int32, 40 + i) for i, sh in enumerate(shapes)]
+    torch.cuda.synchronize()
+    ops.LAUNCHES = 0
+    outs = [ops.merge_tiles(*args) for args in inputs]
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES
+    if launches != len(shapes):
+        fail(f"merge_tiles launched merge_runs {launches} times in {len(shapes)} calls")
+    for args, (ok, ov) in zip(inputs, outs):
+        rk, rv = merge_runs_ref(*args)
+        if not torch.equal(ok, rk) or not torch.equal(pair_multisets(ok, ov), pair_multisets(rk, rv)):
+            fail(f"merge_tiles at {tuple(args[0].shape)} differs from the plain version")
+
+    na, nb = MERGE_RUNS
+    r = np.random.default_rng(41)
+    a = torch.from_numpy(np.sort(r.integers(0, 1 << 32, na, dtype=np.uint64).astype(np.uint32))).to("cuda")
+    b = torch.from_numpy(np.sort(r.integers(0, 1 << 32, nb, dtype=np.uint64).astype(np.uint32))).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk, flags = ops.merge_sorted_runs(a, b)
+    torch.cuda.synchronize()
+    runs_ms = (time.perf_counter() - t0) * 1e3
+    want = torch.sort(words(torch.cat([a, b])).to(torch.int64) & 0xFFFFFFFF)[0]
+    if not torch.equal(words(mk).to(torch.int64) & 0xFFFFFFFF, want):
+        fail("merge_sorted_runs: keys differ from torch.sort of the concatenation")
+    if int((flags == 0).sum()) != na or int((flags == 1).sum()) != nb:
+        fail(f"merge_sorted_runs: {int((flags == 0).sum())} flags of A, expected {na}")
+    return {
+        "phase": "merge_path",
+        "merge_tiles_shapes": list(shapes),
+        "merge_runs_launches": launches,
+        "merge_sorted_runs": {"a": na, "b": nb, "dtype": "uint32", "host_ms_synchronised": runs_ms},
+        "nvidia_smi": smi(),
+    }, launches
+
+
+def durability_walk(mode: str, num_keys: int, seed: int) -> dict:
+    """MD load, large-value updates, forced GC, more updates, crash, recover:
+    every write with an LSN at or below the crash's durable cutoff reads back
+    with its last such value, and no later write does (a dict model)."""
+    import repro_torch.api as api
+    from repro_torch.benchmarks.common import AVG_KV, scaled_config
+    from repro_torch.core.ycsb import Workload, make_key, payload
+
+    eng = api.open(api.EngineConfig(store=scaled_config(mode, dataset_keys=num_keys, avg_kv_bytes=AVG_KV["MD"])))
+    st = eng.store
+    history = []
+    for op in Workload("load_a", "MD", num_keys=num_keys, num_ops=0, seed=seed).load_ops():
+        v = payload(op.value_size)
+        st.put(op.key, v)
+        history.append((st.lsn, op.key, v))
+    r = np.random.default_rng(seed)
+
+    def updates(n, tag):
+        for i, k in enumerate(r.integers(0, num_keys, n)):
+            key, v = make_key(int(k)), payload(996) + f"{tag}{i:07d}".encode()
+            st.update(key, v)
+            history.append((st.lsn, key, v))
+
+    updates(num_keys, "u")
+    gc_relocated = st.gc_tick(force=True)
+    updates(num_keys // 10, "v")
+    cutoff = st.crash()
+    st.recover()
+    expect = {}
+    for lsn, k, v in history:
+        if lsn <= cutoff:
+            expect[k] = v
+    probe = [make_key(i) for i in range(num_keys)]
+    got = [st.get(k) for k in probe]
+    missing = sum(g != expect.get(k) for k, g in zip(probe, got))
+    if missing:
+        fail(f"durability walk ({mode}): {missing} of {num_keys} keys do not read back their last durable write")
+    if st.scan(b"", num_keys + 10) != sorted(expect.items()):
+        fail(f"durability walk ({mode}): the full scan differs from the durable writes")
+    eng.close()
+    return {"mode": mode, "writes": len(history), "durable_lsn": cutoff, "durable_keys": len(expect),
+            "gc_relocated": gc_relocated, "gc_relocations": st.stats.gc_relocations}
+
+
+def phase_store() -> dict:
+    """The store engine on the host, as in the reference, and its classifier on the card."""
+    from repro_torch.benchmarks import bench_ycsb, common
+    from repro_torch.core import model, ycsb
+
+    rows = []
+    t0 = time.perf_counter()
+    bench_ycsb.main(rows.append, smoke=True)
+    wall = time.perf_counter() - t0
+    bad = common.baseline_mismatches(rows, ROOT / "BENCH_BASELINE.json")
+    if len(rows) != 18 or bad:
+        fail(f"fig5 smoke: {len(rows)} rows, mismatches against BENCH_BASELINE.json: {bad}")
+    ops = 3 * (1200 + 4 * 300 + 80)  # per system: the load, four run phases, Run E
+
+    t0 = time.perf_counter()
+    walks = [durability_walk(mode, 4_000, seed=7 + i) for i, mode in enumerate(("parallax", "rocksdb", "blobdb"))]
+    walk_s = time.perf_counter() - t0
+
+    r = np.random.default_rng(5)
+    ks = torch.from_numpy(r.integers(1, 64, CLASSIFY_PAIRS))
+    vs = torch.from_numpy(ycsb._sizes_for("SD", r, CLASSIFY_PAIRS))
+    pol = model.SizePolicy()
+    cpu = pol.classify(ks, vs)
+    card = pol.classify(ks.to("cuda"), vs.to("cuda"))
+    if card.device.type != "cuda" or not torch.equal(card.cpu(), cpu):
+        fail(f"SizePolicy.classify on the card: {(card.cpu() != cpu).sum().item()} of {CLASSIFY_PAIRS} differ from the CPU")
+    p = torch.from_numpy(r.random(1 << 20).astype(np.float32))
+    ben_cpu = model.separation_benefit(4, 8, p)
+    ben_card = model.separation_benefit(4, 8, p.to("cuda"))
+    if not torch.equal(ben_card.cpu().view(torch.int32), ben_cpu.view(torch.int32)):
+        fail("separation_benefit on the card differs in its bits from the CPU")
+    return {
+        "phase": "store",
+        "fig5_rows": len(rows),
+        "fig5_rows_equal_baseline": True,
+        "host_wall_s": wall,
+        "host_ops_per_s": ops / wall,
+        "durability": walks,
+        "durability_host_wall_s": walk_s,
+        "classify_pairs_on_card": CLASSIFY_PAIRS,
+        "classify_categories": torch.bincount(cpu.to(torch.int64), minlength=3).tolist(),
+    }
+
+
 def check_model_f32(cfg, params) -> dict:
     """Full-width model in float32 on a small input: the kernel path against the
     same model with the plain scan, and prefill(S) against prefill(S-1) + decode."""
@@ -545,13 +837,14 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.merge_runs import kernel as merge_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = smi()
     t0 = time.perf_counter()
-    kernels = {"ssd_scan": ssd_kernel, "flash_attention": fa_kernel}
+    kernels = {"ssd_scan": ssd_kernel, "flash_attention": fa_kernel, "merge_runs": merge_kernel}
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, all at once
         list(pool.map(lambda k: k.build(), kernels.values()))
     emit({"phase": "device", "nvidia_smi": card, "kind": torch.cuda.get_device_name(0),
@@ -562,12 +855,16 @@ def main() -> None:
 
     ssd_row = phase_ssd_kernel()
     fa_row = phase_fa_kernel()
+    merge_row = phase_merge_kernel()
+    merge_path, merge_row["launches"] = phase_merge_path()
+    emit(merge_path)
+    emit(phase_store())
     serve, ssd_row["launches"] = phase_serve_mamba2()
     emit(serve)
     forward, serve_dense, fa_row["launches"] = phase_dense()
     emit(forward)
     emit(serve_dense)
-    emit({"kernels": [ssd_row, fa_row]})
+    emit({"kernels": [ssd_row, fa_row, merge_row]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.merge_runs import kernel as merge_kernel
+from repro_torch.kernels.merge_runs import ops as merge_ops
+from repro_torch.kernels.merge_runs.ref import merge_runs_ref, words
 from repro_torch.kernels.ssd_scan import kernel, ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -163,3 +166,89 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
     q3, k3, v3 = _fa_inputs(1, 64, 6, 4, 32, 0, torch.float32, cuda)
     with pytest.raises(ValueError, match="agree"):
         fa_kernel.flash_attention_cuda(q3, k3, v3)
+
+
+# ---------------------------------------------------------------- merge runs
+# The reference's bar (tests/test_kernels.py): keys exactly equal, and equal
+# (key, payload) multisets, since the order among equal keys is left open.
+def _merge_inputs(g, t, key_dtype, seed, device, val_dtype=torch.int32, distinct=0):
+    r = np.random.default_rng(seed)
+
+    def keys():
+        if key_dtype == torch.float32:
+            return torch.from_numpy(np.sort(r.standard_normal((g, t)).astype(np.float32), axis=1))
+        hi = distinct or (1 << 32 if key_dtype == torch.uint32 else 1 << 31)
+        lo = 0 if distinct or key_dtype == torch.uint32 else -(1 << 31)
+        k = np.sort(r.integers(lo, hi, (g, t), dtype=np.int64), axis=1)
+        return torch.from_numpy(k.astype(np.uint32 if key_dtype == torch.uint32 else np.int32))
+
+    def vals():
+        if val_dtype == torch.float32:
+            return torch.from_numpy(r.standard_normal((g, t)).astype(np.float32))
+        return torch.from_numpy(r.integers(-(1 << 31), 1 << 31, (g, t)).astype(np.int32))
+
+    return [x.to(device) for x in (keys(), keys(), vals(), vals())]
+
+
+def _pairs(keys, vals):
+    return torch.sort((words(keys).to(torch.int64) << 32) | (words(vals).to(torch.int64) & 0xFFFFFFFF), dim=1)[0]
+
+
+def _check_merge(out, args):
+    ref = merge_runs_ref(*args)
+    torch.cuda.synchronize()
+    assert out[0].dtype == args[0].dtype and out[1].dtype == args[2].dtype
+    assert torch.equal(words(out[0]), words(ref[0]))
+    assert torch.equal(_pairs(*out), _pairs(*ref))
+
+
+@pytest.mark.parametrize(
+    "g,t", [(8, 64), (16, 128), (8, 256), (32, 32), (1, 512), (13, 64), (1000, 1), (1001, 2), (16384, 512)]
+)
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.float32])
+def test_merge_kernel_matches_ref(cuda, g, t, key_dtype):
+    args = _merge_inputs(g, t, key_dtype, g * t, cuda)
+    _check_merge(merge_kernel.merge_runs_cuda(*args), args)
+
+
+@pytest.mark.parametrize("val_dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("distinct", [0, 3])
+def test_merge_kernel_uint32_keys(cuda, val_dtype, distinct):
+    args = _merge_inputs(64, 512, torch.uint32, 7, cuda, val_dtype=val_dtype, distinct=distinct)
+    _check_merge(merge_kernel.merge_runs_cuda(*args), args)
+
+
+def test_merge_kernel_takes_t_8192_and_refuses_16384(cuda):
+    for key_dtype in (torch.int32, torch.uint32, torch.float32):
+        args = _merge_inputs(5, merge_kernel.MAX_T, key_dtype, 3, cuda)
+        _check_merge(merge_kernel.merge_runs_cuda(*args), args)
+    with pytest.raises(ValueError, match="8192"):
+        merge_kernel.merge_runs_cuda(*_merge_inputs(2, 2 * merge_kernel.MAX_T, torch.int32, 3, cuda))
+    with pytest.raises(ValueError, match="power of two"):
+        merge_kernel.merge_runs_cuda(*_merge_inputs(2, 48, torch.int32, 3, cuda))
+    with pytest.raises(ValueError, match="int32, uint32 or float32"):
+        merge_kernel.merge_runs_cuda(*(x.to(torch.int64) for x in _merge_inputs(2, 8, torch.int32, 3, cuda)))
+
+
+def test_merge_tiles_counts_launches(cuda):
+    args = _merge_inputs(64, 512, torch.int32, 11, cuda)
+    before = merge_ops.LAUNCHES
+    out = merge_ops.merge_tiles(*args)
+    forced = merge_ops.merge_tiles(*args, impl="cuda", block_rows=3)
+    assert merge_ops.LAUNCHES == before + 2
+    _check_merge(out, args)
+    _check_merge(forced, args)
+
+
+def test_merge_kernel_nan_keys_are_outside_the_contract(cuda):
+    """A compare-exchange never swaps a NaN, so a row holding one may come out
+    unsorted (ROADMAP section 3); the kernel still moves whole (key, payload)
+    pairs, so every row keeps its multiset."""
+    args = _merge_inputs(4, 64, torch.float32, 5, cuda)
+    args[0][1, 10] = float("nan")
+    args[1][2, 63] = float("nan")
+    out = merge_kernel.merge_runs_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(_pairs(*out), _pairs(torch.cat(args[:2], 1), torch.cat(args[2:], 1)))
+    ref = merge_runs_ref(*args)
+    assert torch.equal(out[0][[0, 3]], ref[0][[0, 3]])  # rows without a NaN are merged as ever

@@ -46,6 +46,38 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_store_engine_runs_with_jax_and_repro_blocked(tmp_path):
+    """``repro_torch.api`` imports and serves YCSB phases without JAX, through
+    the lazy imports a rescale makes (``elastic/remap.py``, a namespace
+    package) and the atomic write a snapshot makes (``checkpoint/atomic.py``)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.api as api\n"
+        "from repro_torch.core import StoreConfig\n"
+        "from repro_torch.core.ycsb import Workload, make_key\n"
+        "cfg = StoreConfig(l0_capacity=1 << 12, cache_bytes=1 << 15, segment_bytes=1 << 14, chunk_bytes=1 << 11)\n"
+        "for part in ('none', 'hash:2', 'range:2'):\n"
+        "    with api.open(api.EngineConfig(store=cfg, partitioning=part)) as eng:\n"
+        "        n = sum(api.execute(eng, Workload('load_a', 'SD', num_keys=400, num_ops=0).load_ops()).values())\n"
+        "        assert n == 400, n\n"
+        "        if part != 'none':\n"
+        "            eng.rescale(4)\n"
+        "        api.execute(eng, Workload('run_a', 'SD', num_keys=400, num_ops=300).run_ops())\n"
+        "        assert all(eng.get(make_key(i)) is not None for i in range(400))\n"
+        "        if part != 'none':\n"
+        "            eng.store.drain_migration()\n"
+        f"        eng.snapshot({str(tmp_path)!r} + f'/{{part}}.json')\n"
+        "assert 'repro_torch.elastic.remap' in sys.modules and 'repro_torch.checkpoint.atomic' in sys.modules\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) for k in sys.modules if sys.modules[k])\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=ENV, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_port(path):
     for node in ast.walk(ast.parse(path.read_text())):
