@@ -2,8 +2,9 @@
 
 Each source has a plain C entry point that returns a ``cudaError_t``.  The
 build happens at the first ``load`` of a source, into ``build/kernels/`` at
-the repository root, named by a hash of the source and flags so that an
-edited source is rebuilt.  Importing this module needs no compiler and no card.
+the repository root, named by a hash of the flags and of every file in the
+source's directory (the ``.cu`` and the headers it includes), so that an edit
+to any of them is rebuilt.  Importing this module needs no compiler and no card.
 """
 from __future__ import annotations
 
@@ -31,14 +32,22 @@ def _nvcc(name: str) -> str:
     return path
 
 
+def library_path(source: Path) -> Path:
+    """Where ``source``'s library is built: named by a hash of the flags and of
+    every file under its directory, by sorted relative name and content."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in source.parent.rglob("*") if p.is_file()):
+        digest.update(str(path.relative_to(source.parent)).encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
+
+
 def load(source: Path, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """Compile ``source`` (if not yet built), load it and return its entry
     point ``symbol`` with ``argtypes`` and an int result; raises on failure."""
     if source in _entries:
         return _entries[source]
     name = source.stem
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}_{digest}.so"
+    out = library_path(source)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

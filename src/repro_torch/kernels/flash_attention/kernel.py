@@ -1,8 +1,10 @@
-"""Launch the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Launch the flash-attention CUDA kernels (``csrc/flash_attention.cu``).
 
-``build()`` compiles the source with ``nvcc`` for ``sm_90a`` at the first
-launch, through ``kernels/_nvcc.py``.  Importing this module needs no
-compiler and no card.
+One entry point takes both dtypes: bfloat16 runs the tensor-core kernel
+(``wgmma``, K/V tiles by TMA, P carried as two bfloat16 terms), float32 the
+CUDA-core kernel.  ``build()`` compiles the source with ``nvcc`` for
+``sm_90a`` at the first launch, through ``kernels/_nvcc.py``.  Importing this
+module needs no compiler and no card.
 """
 from __future__ import annotations
 

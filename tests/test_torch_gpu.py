@@ -118,11 +118,30 @@ def _fa_inputs(b, s, h, kh, d, seed, dtype, device):
         (2, 1000, 4, 2, 128, 0),   # ragged S, the head dim of qwen2.5-3b
         (1, 77, 2, 1, 24, 20),     # ragged S and window, D % 16 != 0
         (4, 1024, 16, 2, 128, 0),  # the forward shape of qwen2.5-3b
+        # windows that leave some rows no key in their warpgroup's first tile, at head
+        # dims where the rounding error of -1e30 * scale * log2(e) is positive
+        (2, 128, 4, 2, 64, 32),
+        (2, 300, 4, 1, 64, 70),
+        (1, 260, 4, 2, 48, 50),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_ref(cuda, b, s, h, kh, d, window, dtype):
-    q, k, v = _fa_inputs(b, s, h, kh, d, b * s + h, dtype, cuda)
+    _check_flash(cuda, b, s, h, kh, d, window, dtype)
+
+
+# the bf16 kernel's edges: D not a multiple of its 64-column TMA boxes (8, 48, 96),
+# S of one row or one past a 64-key tile or the 128-row q tile, and a window wider than S
+@pytest.mark.parametrize(
+    "b,s,h,kh,d,window",
+    [(1, s, 4, 2, d, 0) for d in (8, 48, 96) for s in (1, 65, 129)] + [(2, 100, 4, 1, 64, 500)],
+)
+def test_flash_bf16_kernel_edges(cuda, b, s, h, kh, d, window):
+    _check_flash(cuda, b, s, h, kh, d, window, torch.bfloat16)
+
+
+def _check_flash(device, b, s, h, kh, d, window, dtype):
+    q, k, v = _fa_inputs(b, s, h, kh, d, b * s + h, dtype, device)
     before = fa_ops.LAUNCHES
     out = fa_ops.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
@@ -131,8 +150,10 @@ def test_flash_kernel_matches_ref(cuda, b, s, h, kh, d, window, dtype):
     ref = flash_attention_ref(q, k, v, window=window)
     torch.testing.assert_close(out.float(), ref.float(), atol=FA_TOL[dtype], rtol=FA_TOL[dtype])
     if dtype == torch.bfloat16:
-        # the kernel computes in float32 and rounds only its output: each element
-        # lies within twice bfloat16's unit roundoff of the float32 plain version
+        # the kernel keeps the softmax in float32 and carries P into the product
+        # with v as two bfloat16 terms (about 16 bits), then rounds its output:
+        # each element lies within twice bfloat16's unit roundoff of the float32
+        # plain version
         ref32 = flash_attention_ref(q.float(), k.float(), v.float(), window=window)
         torch.testing.assert_close(out.float(), ref32, atol=1e-5, rtol=2**-7)
 
@@ -166,6 +187,12 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
     q3, k3, v3 = _fa_inputs(1, 64, 6, 4, 32, 0, torch.float32, cuda)
     with pytest.raises(ValueError, match="agree"):
         fa_kernel.flash_attention_cuda(q3, k3, v3)
+    qb, kb, vb = _fa_inputs(1, 64, 4, 2, 32, 0, torch.bfloat16, cuda)
+    shifted = torch.empty(kb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(kb.shape)
+    shifted.copy_(kb)  # contiguous, its base 2 bytes past a 16-byte boundary
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="aligned"):
+        fa_kernel.flash_attention_cuda(qb, shifted, vb)
 
 
 # ---------------------------------------------------------------- merge runs

@@ -18,7 +18,7 @@ from repro_torch.serve.engine import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_variants.py"]
 ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 
 
