@@ -52,7 +52,11 @@ TEST_SHAPES = [  # tests/test_kernels.py's ssd sweep: G=2 and a single chunk amo
     dict(b=1, s=128, h=4, p=32, g=2, n=32, L=32),
     dict(b=2, s=256, h=8, p=64, g=1, n=64, L=64),
     dict(b=1, s=64, h=2, p=8, g=1, n=8, L=64),
+    # the bf16 kernel's stages: 16 chunks through the state pass, two groups at L = 256
+    dict(b=2, s=4096, h=8, p=64, g=1, n=128, L=256),
+    dict(b=1, s=1024, h=4, p=64, g=2, n=128, L=256),
 ]
+SSD_STAGES = ("ssd_cb_kernel", "ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_out_kernel")
 # y at the reference tests' bars (f32: 2e-4, bf16: 2e-2); the state is f32 in
 # both versions, so in bf16 only the order of its sums differs
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 1e-3)}
@@ -197,6 +201,12 @@ def phase_ssd_kernel() -> dict:
         bound_ms, bound_by, nbytes, flops = ssd_bound(*sh.values(), dtype)
         timing[dtype] = dict(ms=kernel_ms, plain_ms=ref_ms, bound_ms=bound_ms, bound_by=bound_by,
                              bytes=nbytes, flops=flops)
+        if dtype == torch.bfloat16:  # each stage's device ms per call, over 20 calls
+            calls = 20
+            prof = profile(lambda: [ops.ssd_scan(*args, chunk=sh["L"]) for _ in range(calls)], top=8)
+            timing[dtype]["stages_ms"] = {
+                stage: sum(k["ms"] for k in prof["top"] if stage in k["name"]) / calls for stage in SSD_STAGES
+            }
     bf, f32 = timing[torch.bfloat16], timing[torch.float32]
     return {
         "name": "ssd_scan",
@@ -210,6 +220,8 @@ def phase_ssd_kernel() -> dict:
         "bound_ms": bf["bound_ms"],
         "bound_by": bf["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the SSD scan
+        "design": "bf16: cb, chunk_state, state_pass, chunk_out on mma.sync, split operands; f32: CUDA cores",
+        "stages_ms": bf["stages_ms"],
         "kernel_ms": bf["ms"],
         "ref_ms": bf["plain_ms"],
         "shape": sh,
@@ -735,12 +747,18 @@ def phase_serve_mamba2() -> tuple[dict, int]:
     launches = ops.LAUNCHES
     if launches != 2 * cfg.num_layers:
         fail(f"ssd_scan launched {launches} times in serving, expected {2 * cfg.num_layers}")
+    # where a prefill's time goes, outside the counted run: 4 x 1024 tokens
+    tokens = torch.as_tensor(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 1024)), dtype=torch.int64, device="cuda"
+    )
+    prefill = profile(lambda: get_model(cfg).prefill(cfg, params, {"tokens": tokens}, 2048), top=8, named="ssd_")
     return {
         "phase": "serve",
         "arch": cfg.name,
         "params": n_params,
         **served,
         "ssd_scan_launches": launches,
+        "prefill_profile": prefill,
         "model_check_f32": model_check,
         "nvidia_smi": smi(),
     }, launches

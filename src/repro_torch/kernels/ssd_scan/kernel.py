@@ -14,7 +14,7 @@ import torch
 from .._nvcc import load
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
-ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 TILE = 16  # the kernel needs the chunk length to be a multiple of this
 
 
@@ -29,7 +29,10 @@ def ssd_scan_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on the current stream.  S % chunk == 0 and chunk % 16 == 0.
 
-    Returns (y in x's dtype: (B,S,H,P), final_state float32: (B,H,P,N)).
+    Returns (y in x's dtype: (B,S,H,P), final_state float32: (B,H,P,N)).  In
+    bfloat16 the kernel's four stages meet in a float32 workspace allocated
+    here: C B^T per (batch, chunk, group), the state of each (batch, chunk,
+    head) and cum = cumsum(dt a).
     """
     b, s, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
@@ -61,11 +64,17 @@ def ssd_scan_cuda(
     launch = build()
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    workspace = []  # held until the launch is enqueued; the float32 kernel takes none
+    if x.dtype == torch.bfloat16:
+        nc = s // chunk
+        shapes = ((b, nc, g, chunk, chunk), (b, nc, h, p, n), (b, h, s))
+        workspace = [torch.empty(sh, dtype=torch.float32, device=x.device) for sh in shapes]
+    ptrs = [w.data_ptr() for w in workspace] or [None] * 3
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-        y.data_ptr(), state.data_ptr(), b, s, h, p, g, n, chunk,
-        int(x.dtype == torch.bfloat16), stream,
+        y.data_ptr(), state.data_ptr(), *ptrs,
+        b, s, h, p, g, n, chunk, int(x.dtype == torch.bfloat16), stream,
     )
     if rc != 0:
         raise RuntimeError(f"ssd_scan_cuda: launch failed with cudaError {rc}")

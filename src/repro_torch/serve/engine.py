@@ -47,8 +47,23 @@ class ServeEngine:
         return self.model.decode_step(self.cfg, params, cache, tok)
 
     def run_batch(self, requests: list[Request]) -> list[Request]:
-        """Prefill a uniform batch then greedy-decode to completion."""
+        """Prefill a uniform batch then greedy-decode to completion.
+
+        Every family but ssm keeps a positional cache of ``max_len`` rows: a
+        request that needs more (its prompt, then each generated token but
+        the last, which is never fed back) is refused with a ``ValueError``
+        before any request of the batch is admitted.
+        """
         assert len(requests) <= self.batch_size
+        if self.cfg.family != "ssm":
+            for r in requests:
+                need = len(r.prompt) + r.max_new_tokens - 1
+                if need > self.max_len:
+                    raise ValueError(
+                        f"ServeEngine: request {r.seq_id} needs {need} cache positions "
+                        f"(prompt {len(r.prompt)} + {r.max_new_tokens} new tokens - 1), "
+                        f"more than max_len={self.max_len}"
+                    )
         for r in requests:
             alloc = self.cache_mgr.admit(r.seq_id, len(r.prompt) + r.max_new_tokens)
             if alloc is None:

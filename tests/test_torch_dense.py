@@ -205,3 +205,30 @@ def test_attention_keeps_its_kv_head_map(changes):
     twin = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     twin.load_state_dict(params.state_dict())  # strict: the buffer needs no entry
     assert torch.equal(twin.layers[0].attn.kvm, want)
+
+
+def test_serve_engine_refuses_requests_past_max_len():
+    """A dense request that needs max_len + 1 cache positions is refused before
+    any admission; one that needs exactly max_len is served as before, with the
+    reference's tokens and the same tokens as with room to spare."""
+    cfg, params, jcfg, jparams = _build("qwen2.5-3b")
+    prompts = _tokens(2, 40, cfg.vocab_size, seed=13)
+    eng = ServeEngine(cfg, params, max_len=64, batch_size=2, device="cpu")
+    over = [Request(0, torch.from_numpy(prompts[0]), max_new_tokens=24),
+            Request(1, torch.from_numpy(prompts[1]), max_new_tokens=26)]  # 40 + 26 - 1 = 64 + 1
+    with pytest.raises(ValueError, match="needs 65 cache positions.*max_len=64"):
+        eng.run_batch(over)
+    assert eng.cache_mgr.stats()["active"] == 0
+    assert all(r.output == [] for r in over)
+
+    def fits(engine, request_cls, to_tensor):  # 40 + 25 - 1 = 64 positions
+        return [r.output for r in engine.run_batch(
+            [request_cls(2 + i, to_tensor(p), max_new_tokens=25) for i, p in enumerate(prompts)])]
+
+    at_limit = fits(ServeEngine(cfg, params, max_len=64, batch_size=2, device="cpu"), Request, torch.from_numpy)
+    roomy = fits(ServeEngine(cfg, params, max_len=128, batch_size=2, device="cpu"), Request, torch.from_numpy)
+    jax_tokens = fits(JaxServeEngine(jcfg, jparams, max_len=64, batch_size=2), JaxRequest, jnp.asarray)
+    assert at_limit == roomy == jax_tokens
+    assert all(len(out) == 25 for out in at_limit)
+    assert fits(eng, Request, torch.from_numpy) == at_limit  # the refusal left the engine usable
+    assert eng.cache_mgr.stats()["active"] == 0

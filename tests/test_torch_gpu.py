@@ -60,7 +60,12 @@ def _check(out, ref, dtype):
         (2, 64, 4, 16, 1, 16, 16),
         (1, 128, 4, 32, 2, 32, 32),
         (2, 256, 8, 64, 1, 64, 64),
-        (1, 64, 2, 8, 1, 8, 64),  # single chunk
+        (1, 64, 2, 8, 1, 8, 64),  # single chunk; ragged P and N in the bf16 MMA tiles
+        (2, 4096, 8, 64, 1, 128, 256),  # 16 chunks: the bf16 state pass carries across many
+        (1, 1024, 4, 64, 2, 128, 256),  # two groups at the serving chunk
+        (1, 96, 3, 12, 1, 20, 32),  # P and N not multiples of 8: no 16-byte copies
+        (1, 256, 2, 128, 1, 128, 64),  # two 64-wide P tiles in bf16
+        (1, 256, 2, 64, 1, 192, 64),  # a full and a ragged 128-wide N tile in bf16
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

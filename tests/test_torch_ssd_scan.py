@@ -2,7 +2,9 @@
 
 Inputs are made with numpy from a seed and handed to both packages.  The JAX
 side runs its Pallas kernel in interpret mode and its jnp reference, as the
-reference's own kernel tests do.
+reference's own kernel tests do.  A plain-torch mirror of the bfloat16 CUDA
+kernel's four stages holds its roundings to the bars that the card tests hold
+the kernel to.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -113,3 +115,102 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.ssd_scan_cuda(x, dt, a, bm, cm, chunk=16)
 
+
+
+# ------------------------------------------------- the bf16 kernel's arithmetic
+# The card holds the bfloat16 kernel to these bars (abs and rel) against the
+# float32 plain version of its inputs (tests/test_torch_gpu.py, chip_smoke.py).
+CARD_BARS = {"y": 2e-2, "state": 1e-3}
+
+
+def _bf16(v):
+    return v.to(torch.bfloat16).float()
+
+
+def _terms(v, split):
+    """v as the kernel feeds it to a bfloat16 product: hi (+ lo = v - hi)."""
+    hi = _bf16(v)
+    return (hi, _bf16(v - hi)) if split else (hi,)
+
+
+def _kernel_schedule(x, dt, a, bm, cm, *, L, split_state=True, split_scores=True, split_s_in=True):
+    """``csrc/ssd_scan.cu``'s bfloat16 path in plain torch, stage by stage.
+
+    1. ``cb``: C Bᵀ per (batch, chunk, group) from the bfloat16 inputs, float32 sums.
+    2. ``chunk_state``: cum = cumsum(dt a); each chunk's own state
+       (w x)ᵀ B with w_s = exp(cum_L - cum_s) dt_s, the float32 w x carried as
+       bfloat16 hi + lo (rounded once with ``split_state`` false).
+    3. ``state_pass``: S_in[c] = exp(cum_L[c-1]) S_in[c-1] + state[c-1] in float32.
+    4. ``chunk_out``: y = exp(cum_l) C S_inᵀ + W x with W = CB exp(cum_l - cum_s) dt_s,
+       masked to s <= l before the exp; W and S_in are each carried as hi + lo
+       (rounded once with ``split_scores`` / ``split_s_in`` false); y rounded to bfloat16.
+
+    The kernel takes the decay below its 64-row diagonal tiles as a product of
+    two exps; that differs from the one exp here by float32 rounding only.
+    """
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    nc, rep = s // L, h // g
+    cc = cm.float().reshape(b, nc, L, g, n).transpose(2, 3)            # (B, nc, G, L, N)
+    bc = bm.float().reshape(b, nc, L, g, n).transpose(2, 3)
+    cb = cc @ bc.transpose(-1, -2)                                      # stage 1: (B, nc, G, L, L)
+    dtc = dt.reshape(b, nc, L, h).transpose(2, 3)                       # (B, nc, H, L)
+    cum = (dtc * a[:, None]).cumsum(-1)
+    xc = x.float().reshape(b, nc, L, h, p).transpose(2, 3)             # (B, nc, H, L, P)
+    wx = (torch.exp(cum[..., -1:] - cum) * dtc)[..., None] * xc
+    bh = bc.repeat_interleave(rep, dim=2)
+    states = sum(t.transpose(-1, -2) @ bh for t in _terms(wx, split_state))  # stage 2: (B, nc, H, P, N)
+    run, s_in = torch.zeros(b, h, p, n), []
+    for c in range(nc):                                                 # stage 3
+        s_in.append(run)
+        run = run * torch.exp(cum[:, c, :, -1])[..., None, None] + states[:, c]
+    s_in = torch.stack(s_in, 1)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()                 # stage 4
+    decay = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :], 0.0))
+    w = torch.where(causal, cb.repeat_interleave(rep, dim=2) * decay * dtc[..., None, :], 0.0)
+    inter = sum(cc.repeat_interleave(rep, dim=2) @ t.transpose(-1, -2) for t in _terms(s_in, split_s_in))
+    y = inter * torch.exp(cum)[..., None] + sum(t @ xc for t in _terms(w, split_scores))
+    return y.transpose(2, 3).reshape(b, s, h, p).to(torch.bfloat16), run
+
+
+def _bf16_inputs(b, s, h, p, g, n, seed):
+    x, dt, a, bm, cm = _torch(_inputs(b, s, h, p, g, n, seed))
+    return x.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16()
+
+
+def _worst(got, ref, bar):
+    """The largest |got - ref| / (bar + bar |ref|): at most 1 inside the bar."""
+    return ((got.float() - ref).abs() / (bar + bar * ref.abs())).max().item()
+
+
+# chip_smoke.py's TEST_SHAPES (G = 2 and a single chunk among them), then a
+# serving-width slice of mamba2-780m (P = 64, N = 128, L = 256) small enough here
+MIRROR_SHAPES = [(2, 64, 4, 16, 1, 16, 16), (1, 128, 4, 32, 2, 32, 32), (2, 256, 8, 64, 1, 64, 64),
+                 (1, 64, 2, 8, 1, 8, 64), (1, 1024, 2, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,L", MIRROR_SHAPES)
+def test_kernel_schedule_meets_the_card_bars(b, s, h, p, g, n, L):
+    args = _bf16_inputs(b, s, h, p, g, n, seed=b * s + h)
+    L = min(L, s)
+    y, state = _kernel_schedule(*args, L=L)
+    y_ref, state_ref = ssd_scan_ref(*args, chunk=L)
+    assert y.dtype == torch.bfloat16 and y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    assert _worst(y, y_ref, CARD_BARS["y"]) < 0.5  # the final bfloat16 rounding alone takes ~0.1
+    assert _worst(state, state_ref, CARD_BARS["state"]) < 0.05
+
+
+def test_rounding_once_misses_the_card_bars():
+    """Each split is needed at the serving width.  The chunk states rounded once
+    to bfloat16 miss the state bar.  The scores and S_in rounded once take
+    0.58-1.08 of the y bar at this two-head slice, by seed (the serving shape
+    has 96 times its elements), against 0.17 with the split."""
+    b, s, h, p, g, n, L = MIRROR_SHAPES[-1]
+    args = _bf16_inputs(b, s, h, p, g, n, seed=b * s + h)
+    y_ref, state_ref = ssd_scan_ref(*args, chunk=L)
+    y, state = _kernel_schedule(*args, L=L)
+    assert _worst(y, y_ref, CARD_BARS["y"]) < 0.2 and _worst(state, state_ref, CARD_BARS["state"]) < 0.05
+    _, state_once = _kernel_schedule(*args, L=L, split_state=False)
+    assert _worst(state_once, state_ref, CARD_BARS["state"]) > 1
+    y_once, _ = _kernel_schedule(*args, L=L, split_scores=False, split_s_in=False)
+    assert _worst(y_once, y_ref, CARD_BARS["y"]) > max(0.5, 3 * _worst(y, y_ref, CARD_BARS["y"]))
