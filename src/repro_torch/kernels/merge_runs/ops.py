@@ -26,7 +26,8 @@ def merge_tiles(a_keys, b_keys, a_vals, b_vals, *, impl: str = "auto", block_row
     ``impl="auto"`` runs the kernel on CUDA tensors and the plain version on
     CPU tensors; ``impl="cuda"`` (the reference's ``"pallas"``) runs the
     kernel and raises on CPU tensors.  ``block_rows`` is the TPU kernel's row
-    group; it must be >= 1 and changes no result.
+    group; it must be >= 1 and changes no result.  Both routes are stable:
+    equal keys keep A's entries before B's, payloads included.
     """
     global LAUNCHES
     if impl not in ("auto", "cuda"):
@@ -35,7 +36,9 @@ def merge_tiles(a_keys, b_keys, a_vals, b_vals, *, impl: str = "auto", block_row
         raise ValueError(f"merge_tiles: block_rows must be >= 1, got {block_rows}")
     if impl == "auto" and a_keys.device.type == "cpu":
         return merge_runs_ref(a_keys, b_keys, a_vals, b_vals)
-    out = kernel.merge_runs_cuda(a_keys.contiguous(), b_keys.contiguous(), a_vals.contiguous(), b_vals.contiguous())
+    if not (a_keys.is_contiguous() and b_keys.is_contiguous() and a_vals.is_contiguous() and b_vals.is_contiguous()):
+        a_keys, b_keys, a_vals, b_vals = (x.contiguous() for x in (a_keys, b_keys, a_vals, b_vals))
+    out = kernel.merge_runs_cuda(a_keys, b_keys, a_vals, b_vals)
     LAUNCHES += 1
     return out
 

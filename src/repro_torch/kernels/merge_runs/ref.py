@@ -1,14 +1,17 @@
 """Plain PyTorch oracle for the compaction merge kernel: a stable sort of the
 concatenation.
 
-Stable with respect to run order is not required of the kernel: Parallax
-merges runs of unique keys per level and resolves collisions by LSN before the
-byte-level merge, so the kernel contract is: given two ascending (G, T) key
-tiles with payloads, produce the ascending (G, 2T) merged keys with the
-payloads moved along.  PyTorch has few kernels for ``torch.uint32`` (no
-comparison, gather, scatter or flip), so uint32 keys are ordered through an
-int64 copy, and keys and payloads are concatenated and moved as raw 32-bit
-words (int32 views): no uint32 kernel runs.  The CPU path of
+The reference's bar leaves the order among equal keys open (Parallax merges
+runs of unique keys per level and resolves collisions by LSN before the
+byte-level merge): given two ascending (G, T) key tiles with payloads,
+produce the ascending (G, 2T) merged keys with the payloads moved along.
+The port's kernel is a stable merge (equal keys keep A's entries before B's),
+so it equals this oracle in place, payloads included.
+
+PyTorch has few kernels for ``torch.uint32`` (no comparison, gather, scatter
+or flip), so uint32 keys are ordered through an int64 copy, and keys and
+payloads are concatenated and moved as raw 32-bit words (int32 views): no
+uint32 kernel runs.  The CPU path of
 ``ops.merge_tiles`` runs this; on the card it is the CUDA kernel's yardstick.
 """
 from __future__ import annotations

@@ -201,8 +201,10 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
 
 
 # ---------------------------------------------------------------- merge runs
-# The reference's bar (tests/test_kernels.py): keys exactly equal, and equal
-# (key, payload) multisets, since the order among equal keys is left open.
+# The reference's bar (tests/test_kernels.py) is keys exactly equal and equal
+# (key, payload) multisets, since its kernel leaves the order among equal keys
+# open.  The port's kernel is a stable merge, so it is held to more: keys and
+# payloads equal to the plain version in place (the multisets are checked too).
 def _merge_inputs(g, t, key_dtype, seed, device, val_dtype=torch.int32, distinct=0):
     r = np.random.default_rng(seed)
 
@@ -231,6 +233,7 @@ def _check_merge(out, args):
     torch.cuda.synchronize()
     assert out[0].dtype == args[0].dtype and out[1].dtype == args[2].dtype
     assert torch.equal(words(out[0]), words(ref[0]))
+    assert torch.equal(words(out[1]), words(ref[1]))
     assert torch.equal(_pairs(*out), _pairs(*ref))
 
 
@@ -262,6 +265,28 @@ def test_merge_kernel_takes_t_8192_and_refuses_16384(cuda):
         merge_kernel.merge_runs_cuda(*(x.to(torch.int64) for x in _merge_inputs(2, 8, torch.int32, 3, cuda)))
 
 
+@pytest.mark.parametrize("g,t", [(262144, 32), (1024, 8192)])
+def test_merge_kernel_268_mb_shapes(cuda, g, t):
+    """Short tiles (8 rows a block) and MAX_T (a row over 8 blocks), 268 MB each."""
+    args = _merge_inputs(g, t, torch.int32, 12, cuda)
+    _check_merge(merge_kernel.merge_runs_cuda(*args), args)
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("t", [64, 4096])
+def test_merge_tiles_takes_a_misaligned_slice(cuda, key_dtype, t):
+    """Tiles cut from larger tensors at an offset of one element: contiguous,
+    4 bytes past a 16-byte boundary, so the kernel takes its 4-byte path."""
+    args = _merge_inputs(7, t, key_dtype, 13, cuda, distinct=5 if key_dtype == torch.int32 else 0)
+    shifted = []
+    for x in args:
+        s = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+        s.copy_(x)
+        assert s.is_contiguous() and s.data_ptr() % 16 == 4
+        shifted.append(s)
+    _check_merge(merge_ops.merge_tiles(*shifted), args)
+
+
 def test_merge_tiles_counts_launches(cuda):
     args = _merge_inputs(64, 512, torch.int32, 11, cuda)
     before = merge_ops.LAUNCHES
@@ -273,9 +298,9 @@ def test_merge_tiles_counts_launches(cuda):
 
 
 def test_merge_kernel_nan_keys_are_outside_the_contract(cuda):
-    """A compare-exchange never swaps a NaN, so a row holding one may come out
-    unsorted (ROADMAP section 3); the kernel still moves whole (key, payload)
-    pairs, so every row keeps its multiset."""
+    """A NaN compares false, so a row holding one may come out unsorted
+    (ROADMAP section 3); the kernel still moves whole (key, payload) pairs, so
+    every row keeps its multiset."""
     args = _merge_inputs(4, 64, torch.float32, 5, cuda)
     args[0][1, 10] = float("nan")
     args[1][2, 63] = float("nan")
@@ -284,3 +309,20 @@ def test_merge_kernel_nan_keys_are_outside_the_contract(cuda):
     assert torch.equal(_pairs(*out), _pairs(torch.cat(args[:2], 1), torch.cat(args[2:], 1)))
     ref = merge_runs_ref(*args)
     assert torch.equal(out[0][[0, 3]], ref[0][[0, 3]])  # rows without a NaN are merged as ever
+
+
+@pytest.mark.parametrize("t", [64, 4096])
+def test_merge_kernel_rows_out_of_order_keep_their_multisets(cuda, t):
+    """As the CPU model shows (``test_torch_merge_runs.py``): NaNs inside A and B,
+    or a descending run, make the searches' splits cross, and the kernel's
+    clamps still move every (key, payload) pair once; a clean row merges as ever."""
+    args = _merge_inputs(5, t, torch.float32, 5, cuda)
+    args[0][1, 10] = float("nan")
+    args[1][2, t - 1] = float("nan")
+    args[0][3, t // 5] = args[1][3, t // 3] = float("nan")
+    args[0][4] = args[0][4].flip(0)
+    out = merge_kernel.merge_runs_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(_pairs(*out), _pairs(torch.cat(args[:2], 1), torch.cat(args[2:], 1)))
+    ref = merge_runs_ref(*args)
+    assert torch.equal(words(out[0][0]), words(ref[0][0])) and torch.equal(words(out[1][0]), words(ref[1][0]))

@@ -1,8 +1,10 @@
 """The port's compaction merge (``repro_torch.kernels.merge_runs``) on the CPU
 against the reference: the Pallas kernel in interpret mode, its oracle and its
-``merge_sorted_runs``.  The bar is the reference's own: keys exactly equal and
-equal sorted (key, payload) multisets, since the kernel leaves the order of
-payloads among equal keys open."""
+``merge_sorted_runs``.  Against the Pallas kernel the bar is the reference's
+own: keys exactly equal and equal sorted (key, payload) multisets, since that
+kernel leaves the order of payloads among equal keys open.  The port's kernel
+is a stable merge path; its numpy model is held to the plain version in place,
+keys and payloads."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,42 +81,196 @@ def test_merge_with_duplicates():
     assert np.array_equal(mk.numpy()[0], np.sort(np.concatenate([ak[0], bk[0]])))
 
 
-def _network(ak, bk, av, bv):
-    """The CUDA kernel's arithmetic in numpy (``csrc/merge_runs.cu``): B loaded
-    reversed to position 2T-1-c, then the stages from stride T down to 1 with
-    the kernel's pair-to-position formula and its strict swap rule."""
+# csrc/merge_runs.cu's constants: outputs a thread merges, threads a block, staging words
+KE, THREADS = 8, 256
+WORDS = KE * THREADS + 16
+
+
+def _split(a, a0, na, b, b0, nb, d):
+    """The kernel's ``split``: the first i in [max(0, d - nb), min(d, na)) with
+    not a[a0 + i] <= b[b0 + d - 1 - i] (ties go to A), else min(d, na)."""
+    lo, hi = max(0, d - nb), min(d, na)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if a[a0 + mid] <= b[b0 + d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _warp_split(a, b, t, d):
+    """The kernel's ``warp_split``: the same split, lane l of 32 probing
+    lo + (hi - lo) l / 32 each step."""
+    lo, hi = max(0, d - t), min(d, t)
+    while lo < hi:
+        n = hi - lo
+        c = sum(bool(a[i] <= b[d - 1 - i]) for i in (lo + ((n * lane) >> 5) for lane in range(32)))
+        if c == 0:
+            hi = lo
+        else:
+            lo, hi = lo + ((n * (c - 1)) >> 5) + 1, (lo + ((n * c) >> 5) if c < 32 else hi)
+    return lo
+
+
+def _clamp(splits, diags, na, nb, width):
+    """The kernel's clamp of a unit's splits, in order: each step takes 0..width
+    keys of A and the rest of B.  Splits of ascending runs come out as they
+    went in."""
+    out, prev = [], 0
+    for s, d in zip(splits, diags):
+        prev = 0 if d == 0 else min(max(s, max(prev, d - nb)), min(prev + width, na))
+        out.append(prev)
+    return out
+
+
+def _merge_path(ak, bk, av, bv, vec=None):
+    """The kernel's index arithmetic in numpy (``csrc/merge_runs.cu``): blocks
+    of 256 threads, e = min(8, 2T) outputs a thread; whole rows a block when
+    2T fits its span, else one span of a row between two of the row's clamped
+    block splits (``_warp_split``); staging into arrays of the kernel's size,
+    rounded out to 4 words on the 16-byte path (``vec``, taken when T >= 4 and
+    the pointers are aligned), so that a read outside them raises; each
+    thread's two searches, the clamp where a range is unsound, and the
+    bounded sequential merge."""
     g, t = ak.shape
     n = 2 * t
-    sk = np.empty((g, n), ak.dtype)
-    sv = np.empty((g, n), av.dtype)
-    c = np.arange(t)
-    sk[:, c], sv[:, c] = ak, av
-    sk[:, n - 1 - c], sv[:, n - 1 - c] = bk, bv
-    stride = t
-    while stride >= 1:
-        lo = ((c & ~(stride - 1)) << 1) + (c & (stride - 1))
-        hi = lo + stride
-        kl, kh, vl, vh = sk[:, lo], sk[:, hi], sv[:, lo], sv[:, hi]
-        swap = kl > kh
-        sk[:, lo], sk[:, hi] = np.where(swap, kh, kl), np.where(swap, kl, kh)
-        sv[:, lo], sv[:, hi] = np.where(swap, vh, vl), np.where(swap, vl, vh)
-        stride //= 2
-    return sk, sv
+    vec = 2 * t >= KE if vec is None else vec
+    e = min(KE, n)
+    span = THREADS * e
+    q = 4 if vec else 1
+    ok, ov = np.zeros((g, n), ak.dtype), np.zeros((g, n), av.dtype)
+    blocks = -(-g // (span // n)) if n <= span else g * (n // span)
+    for blk in range(blocks):
+        sk, sv = np.zeros(WORDS, ak.dtype), np.zeros(WORDS, av.dtype)
+        if n <= span:
+            rows_per_block = span // n
+            row0 = blk * rows_per_block
+            live = min(rows_per_block, g - row0)
+            half = span // 2
+            sk[:live * t], sk[half:half + live * t] = ak[row0:row0 + live].ravel(), bk[row0:row0 + live].ravel()
+            sv[:live * t], sv[half:half + live * t] = av[row0:row0 + live].ravel(), bv[row0:row0 + live].ravel()
+            na = nb = t
+            unit = n
+            units = [(r * t, half + r * t, row0 + r, 0) for r in range(live)]
+        else:
+            per_row = n // span
+            row, part = divmod(blk, per_row)
+            diags = [k * span for k in range(1, per_row + 1)]
+            splits = _clamp([_warp_split(ak[row], bk[row], t, dk) for dk in diags[:-1]] + [t], diags, t, t, span)
+            i0, i1 = ([0] + splits)[part], splits[part]
+            j0, j1 = part * span - i0, (part + 1) * span - i1
+            a_lo, b_lo = i0 & ~(q - 1), j0 & ~(q - 1)
+            a_words, b_words = ((i1 + q - 1) & ~(q - 1)) - a_lo, ((j1 + q - 1) & ~(q - 1)) - b_lo
+            sk[:a_words], sk[a_words:a_words + b_words] = ak[row, a_lo:a_lo + a_words], bk[row, b_lo:b_lo + b_words]
+            sv[:a_words], sv[a_words:a_words + b_words] = av[row, a_lo:a_lo + a_words], bv[row, b_lo:b_lo + b_words]
+            na, nb = i1 - i0, span - (i1 - i0)
+            unit = span
+            units = [(i0 - a_lo, a_words + j0 - b_lo, row, part * span)]
+        for a0, b0, row, col in units:
+            diags = list(range(0, unit, e))
+            starts = [_split(sk, a0, na, sk, b0, nb, d) for d in diags]
+            ends = [_split(sk, a0, na, sk, b0, nb, d + e) for d in diags]
+            if any(s1 < s0 or s1 - s0 > e for s0, s1 in zip(starts, ends)):
+                starts = _clamp(starts, diags, na, nb, e)
+                ends = starts[1:] + [na]
+            for d, s0, s1 in zip(diags, starts, ends):
+                i, j, j1 = s0, d - s0, d + e - s1
+                x, y = sk[a0 + i], sk[b0 + j]
+                for k in range(col + d, col + d + e):
+                    if j >= j1 or (i < s1 and x <= y):
+                        ok[row, k], ov[row, k] = x, sv[a0 + i]
+                        i += 1
+                        x = sk[a0 + i]
+                    else:
+                        ok[row, k], ov[row, k] = y, sv[b0 + j]
+                        j += 1
+                        y = sk[b0 + j]
+    return ok, ov
 
 
+# keys drawn from 4 values: the sign bit, the top bit and -0.0 against +0.0 among them
+FEW = {np.int32: [-(1 << 31), -1, 0, (1 << 31) - 1], np.uint32: [0, 1, 1 << 31, (1 << 32) - 1],
+       np.float32: [-1.5, -0.0, 0.0, 2.5]}
+
+
+def _patterned(g, t, dtype, pattern, seed):
+    """Two ascending (g, t) key tiles and int32 payloads: ``random`` keys,
+    ``few`` (4 values), or ``disjoint`` runs, A below B in even rows and B below
+    A in odd ones."""
+    ak, bk, av, bv = _runs(g, t, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    if pattern == "few":
+        ak, bk = (np.sort(np.array(FEW[dtype], dtype)[rng.integers(0, 4, (g, t))], axis=1, kind="stable")
+                  for _ in range(2))
+    elif pattern == "disjoint":
+        both = np.sort(np.concatenate([ak, bk], axis=1), axis=1)
+        lo, hi = both[:, :t], both[:, t:]
+        odd = (np.arange(g) % 2 == 1)[:, None]
+        ak, bk = np.where(odd, hi, lo), np.where(odd, lo, hi)
+    return ak, bk, av, bv
+
+
+def _check_model(ak, bk, av, bv, vec=None):
+    """The model against the plain version in place, keys and payloads, as words."""
+    mk, mv = _merge_path(ak, bk, av, bv, vec)
+    rk, rv = merge_runs_ref(*(torch.from_numpy(x) for x in (ak, bk, av, bv)))
+    np.testing.assert_array_equal(mk.view(np.int32), rk.numpy().view(np.int32))
+    np.testing.assert_array_equal(mv.view(np.int32), rv.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("pattern", ["random", "few", "disjoint"])
 @pytest.mark.parametrize("g,t", [(3, 1), (5, 2), (13, 8), (7, 64), (2, 1024)])
 @pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32])
-def test_kernel_network_matches_ref(g, t, dtype):
-    """The kernel's indexing, rehearsed on the CPU: T = 1, G not a multiple of 8,
-    uint32 keys, and few distinct keys so that runs share values."""
-    ak, bk, av, bv = _runs(g, t, dtype, seed=g + t)
-    if dtype == np.int32:
-        rng = np.random.default_rng(t)
-        ak, bk = (np.sort(rng.integers(0, 4, (g, t)).astype(np.int32), axis=1) for _ in range(2))
-    nk, nv = _network(ak, bk, av, bv)
+def test_kernel_merge_path_matches_ref(g, t, dtype, pattern):
+    """The kernel's tiling, search and merge, rehearsed on the CPU: T = 1 and 2
+    (the 4-byte path), G not a multiple of a block's rows, and ties."""
+    _check_model(*_patterned(g, t, dtype, pattern, seed=g + t))
+
+
+@pytest.mark.parametrize("pattern", ["random", "few", "disjoint"])
+@pytest.mark.parametrize("vec", [True, False])
+def test_kernel_merge_path_splits_long_rows(pattern, vec):
+    """T > 1024: a row spans several blocks, each staging the ranges between
+    its two splits, rounded out to 16 bytes on the vector path and not on the
+    4-byte one (misaligned inputs)."""
+    for (g, t), dtype in zip([(2, 2048), (1, 8192)], [np.uint32, np.float32]):
+        _check_model(*_patterned(g, t, dtype, pattern, seed=t), vec=vec)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32])
+def test_every_diagonal_splits_as_the_stable_merge(dtype):
+    """At every diagonal d of a T = 64 row, both searches take as many of A's
+    keys as the first d outputs of the stable merge hold."""
+    for pattern in ("random", "few", "disjoint"):
+        for row, (a, b) in enumerate(zip(*_patterned(2, 64, dtype, pattern, seed=9)[:2])):
+            order = np.argsort(np.concatenate([a, b]), kind="stable")
+            for d in range(129):
+                want = int((order[:d] < 64).sum())
+                assert _split(a, 0, 64, b, 0, 64, d) == want, (pattern, row, d)
+                assert _warp_split(a, b, 64, d) == want, (pattern, row, d)
+
+
+@pytest.mark.parametrize("t", [64, 4096])
+@pytest.mark.parametrize("vec", [True, False])
+def test_kernel_merge_path_keeps_nan_rows_multisets(t, vec):
+    """NaN keys are outside the contract, as on the card
+    (``test_torch_gpu.py::test_merge_kernel_nan_keys_are_outside_the_contract``):
+    NaNs inside A and B, or a run that descends, make the searches' splits
+    cross, and the clamps still move every (key, payload) pair of such a row
+    exactly once; a row without a NaN merges as ever."""
+    ak, bk, av, bv = _runs(5, t, np.float32, seed=5)
+    ak[1, 10] = np.nan
+    bk[2, t - 1] = np.nan
+    ak[3, t // 5], bk[3, t // 3] = np.nan, np.nan
+    ak[4] = ak[4, ::-1]  # descending: the row's block splits cross too
+    mk, mv = _merge_path(ak, bk, av, bv, vec)
     rk, rv = merge_runs_ref(*(torch.from_numpy(x) for x in (ak, bk, av, bv)))
-    np.testing.assert_array_equal(nk, rk.numpy())
-    assert _pairs(nk, nv) == _pairs(rk.numpy(), rv.numpy())
+    np.testing.assert_array_equal(mk[0].view(np.int32), rk.numpy()[0].view(np.int32))
+    np.testing.assert_array_equal(mv[0], rv.numpy()[0])
+    for r in range(5):
+        got = _pairs(mk[r].view(np.int32), mv[r])
+        assert got == _pairs(np.concatenate([ak[r], bk[r]]).view(np.int32), np.concatenate([av[r], bv[r]]))
 
 
 def _check_merge_sorted_runs(a, b):
