@@ -21,6 +21,12 @@ with random weights from seed 0, and checks that each went through its kernel:
   reproduces the fig5 smoke rows of ``BENCH_BASELINE.json``, reads back every
   acknowledged write after GC, crash and recover, and classifies 2^24 sizes
   on the card exactly as on the CPU.
+- the port's bench runner (``repro_torch.benchmarks.run --device cuda``)
+  reproduces all 89 smoke rows of ``BENCH_BASELINE.json`` (also under
+  ``scripts/check_bench.py --tol 0``), then runs the full suite: every claim
+  holds, the three kernels run at the reference's bench shapes within its
+  bars (``bench_kernels``), and ``debug_checks`` runs its race detector and
+  protocol monitor on the host (``bench_analysis``).
 
 Prints one JSON line per phase; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero, with no
@@ -28,10 +34,12 @@ result, when there is no card or when this file stands outside the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -662,6 +670,111 @@ def phase_store() -> dict:
     }
 
 
+def run_benches(args: list[str], out: Path) -> dict:
+    """``python -m repro_torch.benchmarks.run ARGS --device cuda --json OUT``,
+    in this process (so the kernels' launch counts can be read), its rows to a
+    log beside OUT; fails with the log's tail if the runner exits non-zero."""
+    from repro_torch.benchmarks import run
+
+    log = out.with_suffix(".log")
+    code = 0
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        try:
+            run.main([*args, "--device", "cuda", "--json", str(out)])
+        except SystemExit as e:
+            code = e.code
+    if code:
+        print("\n".join(log.read_text().splitlines()[-40:]), file=sys.stderr)
+        fail(f"benchmarks.run {' '.join(args)} exited {code}")
+    return json.loads(out.read_text())
+
+
+def bench_fields(row: dict) -> dict:
+    return dict(p.split("=", 1) for p in row["derived"].split(";") if "=" in p)
+
+
+def phase_bench() -> tuple[dict, dict]:
+    """The port's bench runner on the card: (a) the smoke suite equals all 89
+    rows of BENCH_BASELINE.json, under ``baseline_mismatches`` and under
+    ``scripts/check_bench.py --tol 0`` run with JAX and ``repro`` blocked;
+    (b) the full suite passes every claim, and its three kernel rows ran the
+    CUDA kernels at the reference's bench shapes within the reference's bars
+    (the bench asserts them); (c) ``bench_analysis`` ran ``debug_checks``: the
+    detector saw events and reported nothing.  Returns the phase's line and
+    each kernel's launches in the full suite."""
+    from repro_torch.benchmarks import bench_kernels, common
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.merge_runs import ops as merge_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        smoke = run_benches(["--smoke"], Path(tmp) / "smoke.json")
+        smoke_s = time.perf_counter() - t0
+        rows = [f"{r['name']},{r['us_per_call']},{r['derived']}" for r in smoke["rows"]]
+        bad = common.baseline_mismatches(rows, ROOT / "BENCH_BASELINE.json")
+        if len(rows) != 89 or bad:
+            fail(f"bench smoke: {len(rows)} rows, mismatches against BENCH_BASELINE.json: {bad}")
+        gate = subprocess.run(
+            [sys.executable, "-c",
+             "import runpy, sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
+             "sys.argv = sys.argv[1:]; runpy.run_path(sys.argv[0], run_name='__main__')",
+             str(ROOT / "scripts" / "check_bench.py"), str(Path(tmp) / "smoke.json"),
+             str(ROOT / "BENCH_BASELINE.json"), "--tol", "0"],
+            capture_output=True, text=True, timeout=120,
+        )
+        if gate.returncode != 0:
+            fail(f"scripts/check_bench.py --tol 0 on the smoke rows: {gate.stdout[-2000:]}{gate.stderr[-2000:]}")
+
+        counters = (fa_ops, ssd_ops, merge_ops)
+        for ops in counters:
+            ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        full = run_benches([], Path(tmp) / "full.json")
+        full_s = time.perf_counter() - t0
+        launches = dict(zip(("flash_attention", "ssd_scan", "merge_runs"), (ops.LAUNCHES for ops in counters)))
+    by_name = {r["name"]: r for r in full["rows"]}
+    totals = {r["name"][len("bench:"):-len("/total")]: r for r in full["rows"] if r["name"].startswith("bench:")}
+    if len(totals) != 15 or any(r["derived"] != "ok" for r in totals.values()):
+        fail(f"bench full suite: {({k: r['derived'] for k, r in totals.items()})}")
+    kernel_rows = {}
+    bounds_ms = {  # the same work at the bench shapes, f32 and int32
+        "flash_attention": fa_bound(*bench_kernels.FLASH_SHAPE.values(), torch.float32)[0],
+        "ssd_scan": ssd_bound(*bench_kernels.SSD_SHAPE.values(), torch.float32)[0],
+        "merge_runs": merge_bound(*bench_kernels.MERGE_SHAPE.values())[0],
+    }
+    for name, row_name, check in (
+        ("flash_attention", "kernel:flash_attn_b1s1024h8d64", "kernel_err"),
+        ("ssd_scan", "kernel:ssd_scan_b2s2048h8p64n64", "kernel_err"),
+        ("merge_runs", "kernel:merge_runs_g64t512", "kernel_exact"),
+    ):
+        f = bench_fields(by_name[row_name])
+        if f.get("impl") != "cuda" or check not in f or f.get("kernel_exact", "True") != "True":
+            fail(f"bench {row_name}: {by_name[row_name]['derived']}")
+        if launches[name] != 1 + bench_kernels.REPS:
+            fail(f"bench_kernels launched {name} {launches[name]} times, expected {1 + bench_kernels.REPS}")
+        kernel_rows[name] = {"row": row_name, "kernel_us": float(f["kernel_us"]), check: f[check],
+                             "plain_us": float(by_name[row_name]["us_per_call"]),
+                             "bound_us": bounds_ms[name] * 1e3, "launches": launches[name]}
+    detector = bench_fields(by_name["analysis/detector:gate"])
+    if int(detector["events"]) <= 0 or detector["modeled_metrics_identical"] != "true":
+        fail(f"bench_analysis: {detector}")
+    return {
+        "phase": "bench",
+        "smoke_rows": len(rows),
+        "smoke_rows_equal_baseline": True,
+        "check_bench_tol0": gate.stdout.strip().splitlines()[-1],
+        "smoke_host_wall_s": smoke_s,
+        "full_rows": len(full["rows"]),
+        "full_host_wall_s": full_s,
+        "bench_wall_s": {k: int(r["us_per_call"]) / 1e6 for k, r in totals.items()},
+        "kernels_at_bench_shapes": kernel_rows,
+        "debug_checks_events": int(detector["events"]),
+        "debug_checks_overhead_x": float(detector["overhead_x"]),
+        "nvidia_smi": smi(),
+    }, kernel_rows
+
+
 def check_model_f32(cfg, params) -> dict:
     """Full-width model in float32 on a small input: the kernel path against the
     same model with the plain scan, and prefill(S) against prefill(S-1) + decode."""
@@ -923,6 +1036,8 @@ def main() -> None:
     merge_path, merge_row["launches"] = phase_merge_path()
     emit(merge_path)
     emit(phase_store())
+    bench, bench_kernel_rows = phase_bench()
+    emit(bench)
     serve, ssd_row["launches"] = phase_serve_mamba2()
     emit(serve)
     forward, serve_dense, fa_row["launches"] = phase_dense()
@@ -932,6 +1047,8 @@ def main() -> None:
     fa_row["forward_device_share"] = prof["flash_attention_ms"] / prof["device_busy_ms"]
     emit(forward)
     emit(serve_dense)
+    for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row), ("merge_runs", merge_row)):
+        row["bench_shape"] = bench_kernel_rows[name]
     emit({"kernels": [ssd_row, fa_row, merge_row]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

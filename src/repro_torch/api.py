@@ -1,8 +1,8 @@
 """Unified engine API: one declarative entry point over every front-end.
 
-The reproduction has grown three front-ends (:class:`~repro.core.store.ParallaxStore`,
-:class:`~repro.core.shard.ShardedStore`, :class:`~repro.core.range_shard.RangeShardedStore`)
-and two execution modes (serial and :class:`~repro.core.exec.ShardExecutor`
+The reproduction has grown three front-ends (:class:`~repro_torch.core.store.ParallaxStore`,
+:class:`~repro_torch.core.shard.ShardedStore`, :class:`~repro_torch.core.range_shard.RangeShardedStore`)
+and two execution modes (serial and :class:`~repro_torch.core.exec.ShardExecutor`
 async), with knobs smeared across constructors and ``ycsb.execute`` kwargs.
 This module is the single surface in front of all of them:
 
@@ -27,7 +27,7 @@ This module is the single surface in front of all of them:
 Design rules:
 
 * **Declarative config.**  :class:`EngineConfig` is a validated dataclass tree
-  — placement (:class:`~repro.core.store.StoreConfig`), partitioning
+  — placement (:class:`~repro_torch.core.store.StoreConfig`), partitioning
   (:class:`PartitioningConfig`: scheme + rebalance/migration budgets),
   execution (:class:`ExecutionConfig`: workers/pipeline/pace/overlap policy)
   and driver defaults.  ``partitioning``/``execution`` accept shorthand
@@ -56,7 +56,7 @@ Design rules:
   ``metalog``, per-shard devices).  With async execution, touch it only when
   no driver call is in flight (every ``api.execute`` returns drained).
 
-The legacy module-level drivers (``repro.core.ycsb.execute`` /
+The legacy module-level drivers (``repro_torch.core.ycsb.execute`` /
 ``execute_async``) remain as thin deprecation shims for one release — they
 warn once per process and delegate unchanged (``tests/test_deprecations.py``).
 """
@@ -80,7 +80,7 @@ from repro_torch.core.store import ParallaxStore, StoreConfig
 
 # --------------------------------------------------------------------- errors
 class EngineError(Exception):
-    """Base class for every error raised by the :mod:`repro.api` surface."""
+    """Base class for every error raised by the :mod:`repro_torch.api` surface."""
 
 
 class ClosedError(EngineError):
@@ -107,10 +107,10 @@ class PartitioningConfig:
     ``scheme`` is ``"none"`` (one bare store), ``"hash"`` (crc32 routing over
     ``shards`` stores) or ``"range"`` (contiguous key ranges; ``boundaries``
     pre-splits explicitly, otherwise ``shards`` uniform byte-prefix ranges).
-    The remaining fields mirror :class:`~repro.core.range_shard.RangeShardedStore`'s
+    The remaining fields mirror :class:`~repro_torch.core.range_shard.RangeShardedStore`'s
     rebalance/migration knobs and are ignored by the other schemes;
     ``migrate_budget`` is the driver-paced migration tick budget per batch
-    (``repro.api.execute``'s default for this engine); ``rescale_budget`` is
+    (``repro_torch.api.execute``'s default for this engine); ``rescale_budget`` is
     the default :meth:`Engine.rescale` admission budget — device bytes per
     migration tick shared across all concurrent rescale legs (0 =
     unthrottled) — and applies to both sharded schemes.
@@ -215,7 +215,7 @@ class PartitioningConfig:
 @dataclasses.dataclass(frozen=True)
 class ExecutionConfig:
     """How batches execute: serial (the historical inline path) or async
-    (:class:`~repro.core.exec.ShardExecutor` per-shard queues).  ``overlap``
+    (:class:`~repro_torch.core.exec.ShardExecutor` per-shard queues).  ``overlap``
     is the default device-overlap policy for :meth:`Engine.device_time`
     (``"serial"`` / ``"ideal"`` / ``"channels:<k>"``); ``pace`` converts
     modeled device time into real sleeps and is async-only."""
@@ -282,14 +282,12 @@ class EngineConfig:
     ``batch_size=None`` means auto: per-op for a bare serial store (the
     legacy single-store path), 64 otherwise.
 
-    ``debug_checks=True`` attaches the :mod:`repro.analysis.racecheck`
+    ``debug_checks=True`` attaches the :mod:`repro_torch.analysis.racecheck`
     lockset race detector to the engine (also switchable fleet-wide with the
     ``REPRO_DEBUG_CHECKS`` env var); results and stats stay byte-identical,
     and a clean :meth:`Engine.close` raises
-    :class:`~repro.analysis.racecheck.RaceViolation` if any access raced.
+    :class:`~repro_torch.analysis.racecheck.RaceViolation` if any access raced.
     When off (the default) the detector module is never even imported.
-    In ``repro_torch`` the detector is not ported yet, so ``debug_checks=True``
-    and ``REPRO_DEBUG_CHECKS`` both raise :class:`NotImplementedError`.
 
     ``snapshot_dir`` is the default home for :meth:`Engine.snapshot`
     manifests (``snapshot-<n>.json``; an explicit ``path`` argument always
@@ -309,15 +307,13 @@ class EngineConfig:
     truncate_on_snapshot: bool = True
 
     def __post_init__(self):
-        if self.debug_checks:
-            raise NotImplementedError(_DEBUG_CHECKS_UNPORTED)
         object.__setattr__(self, "partitioning", PartitioningConfig.parse(self.partitioning))
         object.__setattr__(self, "execution", ExecutionConfig.parse(self.execution))
 
     def validate(self) -> "EngineConfig":
         if not isinstance(self.store, StoreConfig):
             raise ConfigError(
-                f"store must be a repro.core.StoreConfig, got {type(self.store).__name__}"
+                f"store must be a repro_torch.core.StoreConfig, got {type(self.store).__name__}"
             )
         if self.store.lifetime is not None and self.store.mode != "parallax":
             raise ConfigError(
@@ -515,14 +511,6 @@ def _debug_checks_env() -> bool:
         "", "0", "false", "off")
 
 
-# The race detector and the protocol monitor live in the analysis package,
-# which the port does not have yet: refuse the switch rather than run without
-# the checks it promises.
-_DEBUG_CHECKS_UNPORTED = (
-    "debug_checks (the race detector and WAL protocol monitor) is not ported to "
-    "repro_torch yet; see ROADMAP.md section 1, item 7 (analysis)")
-
-
 # -------------------------------------------------------------------- engine
 class Engine:
     """A uniform KV surface over any partitioning × execution combination.
@@ -534,8 +522,6 @@ class Engine:
     """
 
     def __init__(self, config: EngineConfig):
-        if config.debug_checks or _debug_checks_env():
-            raise NotImplementedError(_DEBUG_CHECKS_UNPORTED)
         config.validate()
         self.config = config
         self._closed = False
@@ -548,9 +534,19 @@ class Engine:
                 self._store, e.workers, pipeline=e.pipeline, pace=e.pace,
                 max_pending=e.max_pending,
             )
-        # debug checks were refused above: no detector is ever attached
+        # the race detector is opt-in and imported lazily: with debug checks
+        # off, nothing of repro_torch.analysis ever loads (zero-overhead contract,
+        # held by tests/test_analysis_racecheck.py)
         self.race_checker = None
         self.protocol_monitor = None
+        if config.debug_checks or _debug_checks_env():
+            from repro_torch.analysis.racecheck import attach_engine
+            from repro_torch.analysis.protocol.monitor import (
+                attach_engine as attach_protocol_monitor,
+            )
+
+            self.race_checker = attach_engine(self)
+            self.protocol_monitor = attach_protocol_monitor(self)
 
     @staticmethod
     def _build_store(cfg: EngineConfig):
@@ -594,7 +590,7 @@ class Engine:
         shuts down — draining in-flight work first unless ``wait=False``.
         On a clean close (``wait=True``) of a ``debug_checks`` engine, any
         lockset violation the race detector recorded is raised as
-        :class:`~repro.analysis.racecheck.RaceViolation`."""
+        :class:`~repro_torch.analysis.racecheck.RaceViolation`."""
         if self._closed:
             return
         self._closed = True
@@ -731,7 +727,7 @@ class Engine:
         quantile-driven boundary re-splits), journals it to the shard
         metadata WAL, and flips routing immediately: reads and writes keep
         serving while the legs drain in the background via
-        :meth:`migration_tick` (driver-paced; ``repro.api.execute`` paces it
+        :meth:`migration_tick` (driver-paced; ``repro_torch.api.execute`` paces it
         for you).  ``budget`` caps device bytes per tick across *all*
         concurrent legs (default ``partitioning.rescale_budget``; 0 =
         unthrottled).  Returns :meth:`topology`.  Raises
@@ -1099,7 +1095,7 @@ def execute(engine: Engine, ops, *, batch_size: int | None = None,
             gc_every: int | None = None, migrate_budget: int | None = None) -> dict:
     """The one YCSB op-stream driver; returns op counts.
 
-    Replaces ``repro.core.ycsb.execute`` *and* ``execute_async``: the
+    Replaces ``repro_torch.core.ycsb.execute`` *and* ``execute_async``: the
     engine's :class:`ExecutionConfig` decides which path runs, with the
     batching/tick/GC positions of both guaranteed identical by the shared
     batch schedule (``ycsb._batch_events``).  Overrides default to the
@@ -1108,9 +1104,9 @@ def execute(engine: Engine, ops, *, batch_size: int | None = None,
     """
     if not isinstance(engine, Engine):
         raise TypeError(
-            "repro.api.execute drives an Engine; open one with "
-            "repro.api.open(EngineConfig(...)) — the legacy store drivers "
-            "live on as deprecated shims in repro.core.ycsb"
+            "repro_torch.api.execute drives an Engine; open one with "
+            "repro_torch.api.open(EngineConfig(...)) — the legacy store drivers "
+            "live on as deprecated shims in repro_torch.core.ycsb"
         )
     engine._check_open()
     cfg = engine.config

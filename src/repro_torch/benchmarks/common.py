@@ -1,8 +1,18 @@
-"""The benchmarks' shared machinery, copied from ``benchmarks/common.py`` with
-its imports renamed, so that a bench drives ``repro_torch.api`` engines: the
-scaled store config, ``open_engine``, ``BenchResult``, the metric extraction
-and ``run_phase`` (the rest is not copied yet).  Plus
-``baseline_mismatches``, which holds emitted rows to ``BENCH_BASELINE.json``.
+"""Shared benchmark machinery: scaled workloads + metric extraction.
+
+Scaling note (EXPERIMENTS.md §Scaling): the paper loads 100-500M keys onto a
+375 GB Optane device.  The byte-accounted store reproduces the paper's
+*ratios* (amplification, relative throughput/efficiency) at ~1000x smaller
+keyspaces by scaling L0 (128 MB -> 32 KB), segments (2 MB -> 128 KB), cache
+(Table 1 ratios preserved: ~18-40%% of dataset) and log chunks together, so
+the LSM has the same number of levels (3-4) as the paper's datasets.
+
+All benchmarks drive stores through :mod:`repro_torch.api` engines (PR 5): helpers
+take/construct an :class:`repro_torch.api.Engine`, and every per-engine row carries
+the engine-config tag (``EngineConfig.tag()``) after ``@`` in its row id —
+``scripts/check_bench.py`` keys baseline rows on the full id, so config
+changes rename rows (a loud baseline diff) instead of silently shifting
+numbers under an unchanged name.
 
 Metrics:
 * amplification  — device traffic / application traffic (the paper's metric)
@@ -13,12 +23,11 @@ Metrics:
 from __future__ import annotations
 
 import dataclasses
-import json
 import time
-from pathlib import Path
 
 import repro_torch.api as api
-from repro_torch.core import ParallaxStore, StoreConfig
+from repro_torch.core import ParallaxStore, StoreConfig, overlap_time
+from repro_torch.core.ycsb import Workload
 
 # modeled CPU constants (cycles); see module docstring
 C_OP = 2_000          # per user op (parse, memtable, WAL append)
@@ -58,6 +67,11 @@ def scaled_config(mode: str, *, growth_factor: int = 4, dataset_keys: int = 20_0
 def open_engine(store_config: StoreConfig, **engine_kw) -> api.Engine:
     """One-liner for the benches: an engine over a scaled store config."""
     return api.open(api.EngineConfig(store=store_config, **engine_kw))
+
+
+def tagged(name: str, engine: api.Engine) -> str:
+    """Row id carrying the engine-config tag (see module docstring)."""
+    return f"{name}@{engine.config.tag()}"
 
 
 @dataclasses.dataclass
@@ -122,13 +136,182 @@ def run_phase(name: str, system: str, engine: api.Engine, workload_ops,
                        cfg=engine.config.tag())
 
 
-def baseline_mismatches(rows: list[str], baseline: Path) -> list[str]:
-    """Rows whose derived metrics differ from the baseline row of the same
-    name (or that the baseline lacks); the timing column is not compared."""
-    expect = {r["name"]: r["derived"] for r in json.loads(Path(baseline).read_text())["rows"]}
+def async_speedup_phase(make_engine, run_ops_factory, *, workers: int = 4,
+                        batch: int = 64, target_serial_s: float = 0.8) -> dict:
+    """Measured wall-clock of the async engine vs its 1-worker serialization,
+    against the modeled overlap policies, on one workload phase.
+
+    ``make_engine(execution)`` must build an identically-loaded engine for the
+    given :class:`repro_torch.api.ExecutionConfig` each call (three are built: a
+    serial model probe plus the two paced async runs).  The probe runs the
+    phase on the plain serial path and yields per-shard device-time deltas,
+    from which the ``serial`` / ``channels:k`` / ``ideal`` policy times are
+    modeled (:func:`repro_torch.core.io.overlap_time`) and the pace is chosen so
+    the paced 1-worker run sleeps ~``target_serial_s`` — the GIL makes *CPU*
+    overlap impossible, so wall-clock comparisons are meaningful exactly for
+    the paced device time (see docs/execution.md).  Both paced runs must
+    finish with byte-identical per-shard device stats (pacing and threading
+    change no state — the executor's core claim).
+
+    Returns ``model`` (policy -> modeled seconds), ``walls`` (workers ->
+    measured seconds), ``speedup`` (1-worker wall / k-worker wall), ``pace``.
+    """
+    probe = make_engine(api.ExecutionConfig(mode="serial"))
+    before = probe.store.device_times()
+    api.execute(probe, run_ops_factory(), batch_size=batch)
+    after = probe.store.device_times()
+    probe.close()
+    # per-store deltas are positional: a topology change mid-phase (a range
+    # store with its rebalancer live) would misalign them silently — callers
+    # must measure on a static topology (hash, or auto_rebalance=False)
+    assert len(after) == len(before), (
+        f"topology changed during the model probe ({len(before)} -> {len(after)} "
+        "stores); async_speedup_phase needs a static topology"
+    )
+    deltas = [a - b for a, b in zip(after, before)]
+    policies = ("serial", "channels:2", f"channels:{workers}", "ideal")
+    model = {p: overlap_time(deltas, p) for p in policies}
+    pace = target_serial_s / max(model["serial"], 1e-9)
+    walls: dict[int, float] = {}
+    fleets: dict[int, list] = {}
+    tag = ""
+    for w, pipelined in ((1, False), (workers, True)):
+        engine = make_engine(api.ExecutionConfig(
+            mode="async", workers=w, pipeline=pipelined, pace=pace))
+        t0 = time.time()
+        api.execute(engine, run_ops_factory(), batch_size=batch)
+        walls[w] = time.time() - t0
+        fleets[w] = [dataclasses.asdict(s.device.stats)
+                     for s in engine.store._all_stores()]
+        tag = engine.config.tag()  # last iteration: the nominal k-worker config
+        engine.close()
+    assert fleets[1] == fleets[workers], "pacing/threading must not change device traffic"
+    return {
+        "model": model,
+        "walls": walls,
+        "speedup": walls[1] / max(walls[workers], 1e-9),
+        "pace": pace,
+        "tag": tag,
+    }
+
+
+def async_speedup_row(name: str, r: dict, workers: int) -> str:
+    """CSV row for an async_speedup_phase result.  Timing-dependent fields
+    end in ``_s`` or are named ``speedup``/``pace`` so the bench-regression
+    gate (scripts/check_bench.py) knows to skip them; the ``model_*_us``
+    fields are deterministic and gated."""
+    model = ";".join(
+        f"model_{p.replace(':', '')}_us={t * 1e6:.1f}" for p, t in r["model"].items()
+    )
+    return (
+        f"{name},0,{model};speedup={r['speedup']:.2f};"
+        f"serial_wall_s={r['walls'][1]:.3f};async_wall_s={r['walls'][workers]:.3f};"
+        f"pace={r['pace']:.0f}"
+    )
+
+
+def run_async_claim(emit, prefix: str, row_name: str, make_engine, run_ops_factory,
+                    *, workers: int = 4, batch: int = 64,
+                    target_serial_s: float = 2.0) -> dict:
+    """The PR 4 async acceptance claim, shared by bench_shard/bench_range:
+    measure the paced speedup phase, emit the model-vs-measured row and the
+    gate status row, and assert the >=2x wall-clock claim (when meaningful)
+    plus the model ladder.  One call site per bench keeps the two benches'
+    acceptance criteria identical by construction.  ``make_engine`` is the
+    :func:`async_speedup_phase` engine factory; the emitted ids carry the
+    nominal async config tag."""
+    r = async_speedup_phase(make_engine, run_ops_factory, workers=workers,
+                            batch=batch, target_serial_s=target_serial_s)
+    emit(async_speedup_row(f"{row_name}@{r['tag']}", r, workers))
+    emit_speedup_gate(emit, f"{prefix}@{r['tag']}", r, workers, target_serial_s)
+    return r
+
+
+def emit_speedup_gate(emit, prefix: str, r: dict, workers: int,
+                      target_serial_s: float, min_speedup: float = 2.0) -> None:
+    """The PR 4 acceptance gate on an async_speedup_phase result.
+
+    The wall-clock assertion is only meaningful while sleeps dominate: the
+    non-sleep share of the 1-worker wall (GIL-serialized CPU + executor
+    overhead, added equally to both walls) compresses the ratio, so on a
+    pathologically loaded host (CPU share > 0.3x the paced sleep — where even
+    a >=3x overlap could be squeezed under 2x with no code regression) the
+    assertion is skipped.  The ``:gate`` status row is emitted either way
+    (deterministic presence; scripts/check_bench.py excludes ``:gate`` rows
+    from the regression diff since their values are host-load-dependent).
+    Also asserts the modeled policy ladder is consistent.
+    """
+    cpu_overhead = r["walls"][1] - target_serial_s
+    applied = cpu_overhead <= 0.3 * target_serial_s
+    emit(f"{prefix}:gate,0,speedup_gate={'applied' if applied else 'skipped_cpu_bound'};"
+         f"cpu_overhead_s={cpu_overhead:.2f}")
+    if applied:
+        assert r["speedup"] >= min_speedup, r
+    assert r["model"]["ideal"] <= r["model"][f"channels:{workers}"] <= r["model"]["serial"], r
+
+
+def load_then_run(name: str, mode: str, mix: str, *, num_keys: int, num_ops: int,
+                  run_kind: str = "run_a", cfg_kw: dict | None = None,
+                  config: StoreConfig | None = None, seed: int = 7) -> tuple[BenchResult, BenchResult, api.Engine]:
+    kw = dict(cfg_kw or {})
+    kw.setdefault("avg_kv_bytes", AVG_KV.get(mix, 250))
+    kw.setdefault("dataset_keys", num_keys)
+    cfg = config or scaled_config(mode, **kw)
+    engine = open_engine(cfg)
+    w = Workload("load_a", mix, num_keys=num_keys, num_ops=0, seed=seed)
+    load_res = run_phase(f"{name}:load_a", mode, engine, w.load_ops())
+    r = Workload(run_kind, mix, num_keys=num_keys, num_ops=num_ops, seed=seed)
+    run_res = run_phase(f"{name}:{run_kind}", mode, engine, r.run_ops())
+    return load_res, run_res, engine
+
+
+
+# ---------------------------------------------------------------------------
+# The port's own, after the copy above: hold emitted rows to BENCH_BASELINE.json
+# (imports local, so that everything above stays the reference's, renamed).
+
+TIMING_KEYS = {"speedup", "pace", "us"}
+
+
+def _fields(derived: str) -> dict[str, str] | None:
+    """A row's ``key=value;...`` fields less its wall-clock ones (keys ending
+    in ``_s``, and ``speedup``/``pace``/``us``), or ``None`` for a claim row
+    that carries a bare string (``ok``)."""
+    pairs = [part.split("=", 1) for part in derived.split(";") if "=" in part]
+    if not pairs:
+        return None
+    return {k: v for k, v in pairs if k not in TIMING_KEYS and not k.endswith("_s")}
+
+
+def _by_occurrence(rows) -> dict[tuple[str, int], str]:
+    """``(name, derived)`` pairs keyed by (name, occurrence): a bench may emit
+    a name twice."""
+    seen: dict[str, int] = {}
+    out = {}
+    for name, derived in rows:
+        out[(name, seen.get(name, 0))] = derived
+        seen[name] = seen.get(name, 0) + 1
+    return out
+
+
+def baseline_mismatches(rows: list[str], baseline) -> list[str]:
+    """Rows that differ from the baseline row of the same name and occurrence,
+    or that the baseline lacks.  What ``scripts/check_bench.py`` skips is
+    skipped here too: the ``us_per_call`` column, the wall-clock fields and
+    the host-load ``:gate`` rows.  Every other field must be string-equal,
+    which is stricter than that script's relative tolerance."""
+    import json
+    from pathlib import Path
+
+    expect = _by_occurrence((r["name"], r["derived"]) for r in json.loads(Path(baseline).read_text())["rows"])
+    got = _by_occurrence(row.split(",", 2)[::2] for row in rows)
     bad = []
-    for row in rows:
-        name, _, derived = row.split(",", 2)
-        if expect.get(name) != derived:
-            bad.append(f"{name}: got {derived!r}, baseline {expect.get(name)!r}")
+    for key, derived in got.items():
+        if key[0].endswith(":gate"):
+            continue
+        want = expect.get(key)
+        if want is None:
+            bad.append(f"{key[0]}: not in the baseline")
+        elif _fields(derived) != _fields(want) or (_fields(want) is None and derived != want):
+            bad.append(f"{key[0]}: got {derived!r}, baseline {want!r}")
     return bad

@@ -326,3 +326,20 @@ def test_merge_kernel_rows_out_of_order_keep_their_multisets(cuda, t):
     assert torch.equal(_pairs(*out), _pairs(torch.cat(args[:2], 1), torch.cat(args[2:], 1)))
     ref = merge_runs_ref(*args)
     assert torch.equal(words(out[0][0]), words(ref[0][0])) and torch.equal(words(out[1][0]), words(ref[1][0]))
+
+
+def test_bench_kernels_run_the_cuda_kernels(cuda):
+    """``bench_kernels`` on the card runs each CUDA kernel at the reference's
+    bench shape (one warm-up and ``REPS`` timed launches) and holds it to its
+    plain version; each row says ``impl=cuda``."""
+    from repro_torch.benchmarks import bench_kernels
+
+    counters = (fa_ops, ops, merge_ops)
+    for m in counters:
+        m.LAUNCHES = 0
+    rows = []
+    bench_kernels.main(rows.append, device="cuda")
+    assert [m.LAUNCHES for m in counters] == [1 + bench_kernels.REPS] * 3
+    for row, check in zip(rows, ("kernel_err", "kernel_err", "kernel_exact")):
+        fields = dict(p.split("=", 1) for p in row.split(",", 2)[2].split(";"))
+        assert fields["impl"] == "cuda" and check in fields and float(fields["kernel_us"]) > 0, row

@@ -18,7 +18,10 @@ from repro_torch.serve.engine import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_variants.py"]
+# the package, the smoke test and every script that drives the port
+PORT_SCRIPTS = [ROOT / "scripts" / f"{s}.py" for s in ("flash_variants", "ssd_variants", "merge_variants",
+                                                        "lint_contracts_torch", "check_protocol_torch")]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + PORT_SCRIPTS
 ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 
 
@@ -70,6 +73,44 @@ def test_store_engine_runs_with_jax_and_repro_blocked(tmp_path):
         "            eng.store.drain_migration()\n"
         f"        eng.snapshot({str(tmp_path)!r} + f'/{{part}}.json')\n"
         "assert 'repro_torch.elastic.remap' in sys.modules and 'repro_torch.checkpoint.atomic' in sys.modules\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) for k in sys.modules if sys.modules[k])\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=ENV, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_debug_checks_and_checkpointer_run_with_jax_and_repro_blocked(tmp_path):
+    """The race detector, the protocol monitor and the checkpointer load and
+    run without JAX: a checked range engine through a rescale, and a
+    checkpoint saved and restored."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "import repro_torch.api as api\n"
+        "from repro_torch.checkpoint.store import LogStructuredCheckpointer\n"
+        "from repro_torch.core import StoreConfig\n"
+        "cfg = StoreConfig(l0_capacity=1 << 12, cache_bytes=1 << 15, segment_bytes=1 << 14, chunk_bytes=1 << 11)\n"
+        "with api.open(api.EngineConfig(store=cfg, partitioning='range:2', execution='async', debug_checks=True)) as eng:\n"
+        "    for i in range(200):\n"
+        "        eng.put(b'k%04d' % i, b'v' * (i % 31 + 1))\n"
+        "    eng.rescale(3)\n"
+        "    while eng.topology()['rescale'] is not None:\n"
+        "        eng.migration_tick()\n"
+        "    assert eng.get(b'k0042') == b'v' * 12\n"
+        "    assert eng.race_checker.events > 0 and eng.race_checker.reports == []\n"
+        "    assert eng.protocol_monitor.records_checked > 0\n"
+        f"ck = LogStructuredCheckpointer({str(tmp_path)!r}, consolidate_every=2)\n"
+        "state = {'w': np.arange(4096, dtype=np.float32), 'b': np.ones(16, np.float32), 's': np.float32(3)}\n"
+        "for step in range(3):\n"
+        "    state['w'] = state['w'] + 1\n"
+        "    ck.save(step, state)\n"
+        "out, step = ck.restore()\n"
+        "assert step == 2 and all(out[k].tobytes() == np.asarray(v).tobytes() for k, v in state.items())\n"
+        "assert 'repro_torch.analysis.racecheck' in sys.modules and 'repro_torch.analysis.protocol.monitor' in sys.modules\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) for k in sys.modules if sys.modules[k])\n"
         "print('ok')\n"
     )

@@ -193,18 +193,28 @@ def test_public_surface_equals_reference():
     assert port_core == ref_core
 
 
-def test_debug_checks_are_refused_and_name_the_roadmap(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.EngineConfig(debug_checks=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.open(debug_checks=True)
-    monkeypatch.setenv("REPRO_DEBUG_CHECKS", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.open()
-    monkeypatch.setenv("REPRO_DEBUG_CHECKS", "0")
-    with tapi.open() as eng:
-        eng.put(b"k", b"v")
-        assert eng.get(b"k") == b"v" and eng.race_checker is None
+@pytest.mark.parametrize("switch", ["config", "open", "env"])
+def test_debug_checks_attach_the_ports_checkers_as_in_the_reference(monkeypatch, switch):
+    """Each of the reference's three switches attaches the port's own race
+    detector and protocol monitor; the run's results and stats equal the
+    reference's under its checks."""
+    stats = {}
+    for name, (api, core) in PACKAGES.items():
+        kw = dict(store=_config(core, bloom_bits_per_key=10), partitioning="range:3", execution="async")
+        if switch == "env":
+            monkeypatch.setenv("REPRO_DEBUG_CHECKS", "1")
+            eng = api.open(api.EngineConfig(**kw))
+        elif switch == "open":
+            eng = api.open(debug_checks=True, **kw)
+        else:
+            eng = api.open(api.EngineConfig(debug_checks=True, **kw))
+        with eng:
+            assert type(eng.race_checker).__module__ == f"{api.__name__.split('.')[0]}.analysis.racecheck"
+            assert type(eng.protocol_monitor).__module__.startswith(f"{api.__name__.split('.')[0]}.analysis.protocol")
+            _drive(api, tycsb if name == "port" else jycsb, {"range-async": eng}, 300, seed=3)
+            stats[name] = (eng.stats(), eng.race_checker.reports, eng.race_checker.events > 0)
+    assert stats["port"] == stats["ref"]
+    assert stats["ref"][1:] == ([], True)
 
 
 def test_fig5_smoke_rows_equal_the_baseline():
