@@ -15,6 +15,14 @@ with random weights from seed 0, and checks that each went through its kernel:
   kernel path against the plain attention;
 - qwen2.5-3b serves two batches through ``ServeEngine`` (no kernel launch:
   prefill and decode use the plain attention, as in the reference);
+- zamba2-2.7b (hybrid), full width and depth: an f32 twin holds both kernels'
+  path against the plain scan and attention, ``forward`` and ``loss_fn`` run
+  with ``attention_impl="flash"`` (54 ``ssd_scan`` and 9 ``flash_attention``
+  launches a call), and it serves two batches (54 ``ssd_scan`` launches a
+  prefill, no ``flash_attention``);
+- deepseek-moe-16b and internvl2-26b (4 of their layers) and whisper-medium
+  (full depth) at full width: an f32 twin's prefill against prefill + decode,
+  and one batch through ``ServeEngine`` each (no kernel launch);
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -54,6 +62,7 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SERVE_SHAPE = dict(b=4, s=1024, h=48, p=64, g=1, n=128, L=256)  # mamba2-780m prefill
+ZAMBA2_SSD_SHAPE = dict(b=4, s=1024, h=80, p=64, g=1, n=64, L=256)  # zamba2-2.7b forward and prefill
 TEST_SHAPES = [  # tests/test_kernels.py's ssd sweep: G=2 and a single chunk among them
     dict(b=2, s=64, h=4, p=16, g=1, n=16, L=16),
     dict(b=1, s=128, h=4, p=32, g=2, n=32, L=32),
@@ -69,6 +78,7 @@ SSD_STAGES = ("ssd_cb_kernel", "ssd_chunk_state_kernel", "ssd_state_pass_kernel"
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 1e-3)}
 
 FA_FORWARD_SHAPE = dict(b=4, s=1024, h=16, kh=2, d=128)  # qwen2.5-3b forward, 4 x 1024 tokens
+FA_ZAMBA2_SHAPE = dict(b=4, s=1024, h=32, kh=32, d=80)  # zamba2-2.7b's shared block: MHA, D across two TMA boxes
 # tests/test_kernels.py's flash sweep and its window case, then a ragged S, then
 # windows at D = 64 that leave some rows no key in their warpgroup's first tile
 FA_TEST_SHAPES = [
@@ -87,6 +97,15 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference tests' bar
 # bfloat16 terms (about 16 bits), then rounds its output, so each element lies
 # within twice bfloat16's unit roundoff (2**-8) of that version, plus float32 noise
 FA_BF16_VS_F32 = dict(atol=1e-5, rtol=2**-7)
+
+
+# (arch, decoder layers kept or None for all, prompt length, max_len): each cut lets the
+# params fit one 80 GB card beside their f32 twin
+FAMILIES = (
+    ("deepseek-moe-16b", 4, 1024, 2048),   # of 28 layers: the full depth is 16.9 G params, 68 GB in f32
+    ("internvl2-26b", 4, 1024, 2048),      # of 48 layers: 19.9 G params, 79 GB in f32; 256 zero patch embeddings
+    ("whisper-medium", None, 256, 512),    # full depth: 24 + 24 layers, 1500 encoder frames
+)
 
 
 MERGE_BENCH_SHAPE = dict(g=64, t=512)  # benchmarks/bench_kernels.py's merge tiles
@@ -190,18 +209,13 @@ def check_ssd(shape, dtype, seed) -> float:
     return (y.float() - y_ref).abs().max().item()
 
 
-def phase_ssd_kernel() -> dict:
+def time_ssd(sh, stages: bool = False) -> dict:
+    """Kernel (CUDA events over 50 calls) and plain version (10) at one shape,
+    bf16 and f32, with the bound; with ``stages`` each bf16 stage's device
+    ms per call, over 20 profiled calls."""
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        errs[dtype] = check_ssd(SERVE_SHAPE, dtype, seed=0)
-        for i, shape in enumerate(TEST_SHAPES):
-            check_ssd(shape, dtype, seed=1 + i)
-        check_ssd({**SERVE_SHAPE, "s": 1000}, dtype, seed=9)  # S % L != 0
-
-    sh = SERVE_SHAPE
     timing = {}
     for dtype in (torch.bfloat16, torch.float32):
         args = ssd_inputs(sh["b"], sh["s"], sh["h"], sh["p"], sh["g"], sh["n"], 0, dtype)
@@ -210,19 +224,33 @@ def phase_ssd_kernel() -> dict:
         bound_ms, bound_by, nbytes, flops = ssd_bound(*sh.values(), dtype)
         timing[dtype] = dict(ms=kernel_ms, plain_ms=ref_ms, bound_ms=bound_ms, bound_by=bound_by,
                              bytes=nbytes, flops=flops)
-        if dtype == torch.bfloat16:  # each stage's device ms per call, over 20 calls
+        if stages and dtype == torch.bfloat16:
             calls = 20
             prof = profile(lambda: [ops.ssd_scan(*args, chunk=sh["L"]) for _ in range(calls)], top=8)
             timing[dtype]["stages_ms"] = {
                 stage: sum(k["ms"] for k in prof["top"] if stage in k["name"]) / calls for stage in SSD_STAGES
             }
+    return timing
+
+
+def phase_ssd_kernel() -> dict:
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype] = check_ssd(SERVE_SHAPE, dtype, seed=0)
+        for i, shape in enumerate(TEST_SHAPES):
+            check_ssd(shape, dtype, seed=1 + i)
+        check_ssd({**SERVE_SHAPE, "s": 1000}, dtype, seed=9)  # S % L != 0
+        errs[dtype, "zamba2"] = check_ssd(ZAMBA2_SSD_SHAPE, dtype, seed=10)
+
+    timing = time_ssd(SERVE_SHAPE, stages=True)
+    zamba2 = time_ssd(ZAMBA2_SSD_SHAPE)
     bf, f32 = timing[torch.bfloat16], timing[torch.float32]
     return {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:75",
-        "launches": None,  # filled from the serving phase
+        "launches": None,  # filled from the main paths
         "max_abs_err": errs[torch.bfloat16],
         "ms": bf["ms"],
         "plain_ms": bf["plain_ms"],
@@ -233,21 +261,25 @@ def phase_ssd_kernel() -> dict:
         "stages_ms": bf["stages_ms"],
         "kernel_ms": bf["ms"],
         "ref_ms": bf["plain_ms"],
-        "shape": sh,
+        "shape": SERVE_SHAPE,
         "dtype": "bfloat16",
         "bytes": bf["bytes"],
         "flops": bf["flops"],
         "f32": {"max_abs_err": errs[torch.float32], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
                 "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"]},
+        "zamba2_shape": {"shape": ZAMBA2_SSD_SHAPE,
+                         **{name: {"max_abs_err": errs[dtype, "zamba2"], **zamba2[dtype]}
+                            for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}},
     }
 
 
-def profile(fn, top: int = 6, named: str | None = None) -> dict:
+def profile(fn, top: int = 6, names: tuple[str, ...] = ()) -> dict:
     """One call of fn under torch.profiler: host wall ms, the device's busy ms
     (the union of kernel intervals), its idle share, the kernels that took
-    the most device time and, with ``named``, the device ms of the kernels
-    whose name holds it.  The profiler slows the host, so the idle share is
-    an upper bound.  Device numbers are null where the trace holds no kernel."""
+    the most device time and, for each of ``names``, the device ms of the
+    kernels whose name holds it (as ``{name}_ms``).  The profiler slows the
+    host, so the idle share is an upper bound.  Device numbers are null where
+    the trace holds no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -261,7 +293,7 @@ def profile(fn, top: int = 6, named: str | None = None) -> dict:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         return {"wall_ms": wall_ms, "device_busy_ms": None, "idle_share": None, "kernels": 0, "top": [],
-                **({f"{named}_ms": None} if named is not None else {})}
+                **{f"{n}_ms": None for n in names}}
     busy, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         busy += max(0.0, stop - max(start, end))
@@ -272,8 +304,8 @@ def profile(fn, top: int = 6, named: str | None = None) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / 1e3 / wall_ms,
            "kernels": len(kernels), "top": [{"name": n, "ms": t} for n, t in ranked]}
-    if named is not None:
-        out[f"{named}_ms"] = sum(t for n, t in by_name.items() if named in n)
+    for name in names:
+        out[f"{name}_ms"] = sum(t for n, t in by_name.items() if name in n)
     return out
 
 
@@ -322,24 +354,12 @@ def check_fa(shape, dtype, seed) -> tuple[float, float | None]:
     return (out.float() - ref.float()).abs().max().item(), rel
 
 
-def phase_fa_kernel() -> dict:
+def time_fa(sh) -> dict:
+    """Kernel and SDPA (CUDA events over 50 calls), plain version (10) and the
+    host's time per kernel call, at one shape, bf16 and f32, with the bound."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    errs, rels = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
-        errs[dtype], rels[dtype] = check_fa(FA_FORWARD_SHAPE, dtype, seed=0)
-        for i, shape in enumerate(FA_TEST_SHAPES):
-            check_fa(shape, dtype, seed=1 + i)
-    # causality (tests/test_kernels.py): a changed tail leaves earlier rows as they were
-    q, k, v = fa_inputs(1, 128, 2, 2, 32, 1, torch.float32)
-    out1 = ops.flash_attention(q, k, v)
-    k[:, 100:], v[:, 100:] = 99.0, -99.0
-    out2 = ops.flash_attention(q, k, v)
-    if not torch.allclose(out1[:, :100], out2[:, :100], atol=1e-6, rtol=0):
-        fail("flash_attention: rows before a changed tail moved")
-
-    sh = FA_FORWARD_SHAPE
     timing = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = fa_inputs(*sh.values(), 0, dtype)
@@ -352,13 +372,35 @@ def phase_fa_kernel() -> dict:
         bound_ms, bound_by, nbytes, flops = fa_bound(*sh.values(), dtype)
         timing[dtype] = dict(ms=kernel_ms, host_ms=call_ms, plain_ms=ref_ms, library_ms=lib_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bytes=nbytes, flops=flops)
+    return timing
+
+
+def phase_fa_kernel() -> dict:
+    from repro_torch.kernels.flash_attention import ops
+
+    errs, rels = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype], rels[dtype] = check_fa(FA_FORWARD_SHAPE, dtype, seed=0)
+        for i, shape in enumerate(FA_TEST_SHAPES):
+            check_fa(shape, dtype, seed=1 + i)
+        errs[dtype, "zamba2"], rels[dtype, "zamba2"] = check_fa(FA_ZAMBA2_SHAPE, dtype, seed=20)
+    # causality (tests/test_kernels.py): a changed tail leaves earlier rows as they were
+    q, k, v = fa_inputs(1, 128, 2, 2, 32, 1, torch.float32)
+    out1 = ops.flash_attention(q, k, v)
+    k[:, 100:], v[:, 100:] = 99.0, -99.0
+    out2 = ops.flash_attention(q, k, v)
+    if not torch.allclose(out1[:, :100], out2[:, :100], atol=1e-6, rtol=0):
+        fail("flash_attention: rows before a changed tail moved")
+
+    timing = time_fa(FA_FORWARD_SHAPE)
+    zamba2 = time_fa(FA_ZAMBA2_SHAPE)
     bf, f32 = timing[torch.bfloat16], timing[torch.float32]
     return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
-        "launches": None,  # filled from the forward phase
+        "launches": None,  # filled from the main paths
         "max_abs_err": errs[torch.bfloat16],
         "rel_err_vs_f32": rels[torch.bfloat16],
         "ms": bf["ms"],
@@ -369,12 +411,16 @@ def phase_fa_kernel() -> dict:
         "design": "wgmma+tma, split P",
         "host_ms": bf["host_ms"],  # the host's time per call of ops.flash_attention, wrapper included
         "forward_device_share": None,  # filled from the profiled forward
-        "shape": sh,
+        "shape": FA_FORWARD_SHAPE,
         "dtype": "bfloat16",
         "bytes": bf["bytes"],
         "flops": bf["flops"],
         "f32": {"max_abs_err": errs[torch.float32], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
                 "library_ms": f32["library_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"]},
+        "zamba2_shape": {"shape": FA_ZAMBA2_SHAPE,
+                         **{name: {"max_abs_err": errs[dtype, "zamba2"], "rel_err_vs_f32": rels[dtype, "zamba2"],
+                                   **zamba2[dtype]}
+                            for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}},
     }
 
 
@@ -471,7 +517,7 @@ def time_merge(g, t) -> dict:
     lib_ms = cuda_ms(lambda: torch.sort(cat, dim=1, stable=True), iters=50)
     # 20 launches under the profiler: the kernel's own device time per launch,
     # without the host's share of back-to-back calls (checks, ctypes, allocation)
-    merge_ms = profile(lambda: [kernel.merge_runs_cuda(*args) for _ in range(20)], named="merge")["merge_ms"]
+    merge_ms = profile(lambda: [kernel.merge_runs_cuda(*args) for _ in range(20)], names=("merge",))["merge_ms"]
     device_ms = merge_ms / 20 if merge_ms else None
     bound_ms, nbytes = merge_bound(g, t)
     return dict(shape=dict(g=g, t=t), ms=kernel_ms, host_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -775,6 +821,16 @@ def phase_bench() -> tuple[dict, dict]:
     }, kernel_rows
 
 
+def f32_twin(cfg, params, **changes):
+    """(cfg32, p32): the same weights computing in float32 (and with ``changes``)."""
+    from repro_torch.models import get_model
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", **changes)
+    p32 = get_model(cfg32).init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    p32.load_state_dict(params.state_dict())
+    return cfg32, p32
+
+
 def check_model_f32(cfg, params) -> dict:
     """Full-width model in float32 on a small input: the kernel path against the
     same model with the plain scan, and prefill(S) against prefill(S-1) + decode."""
@@ -782,10 +838,8 @@ def check_model_f32(cfg, params) -> dict:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models import get_model
 
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg32, p32 = f32_twin(cfg, params)
     m = get_model(cfg32)
-    p32 = m.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    p32.load_state_dict(params.state_dict())  # the same weights, computing in float32
     tokens = torch.as_tensor(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 300)), dtype=torch.int64, device="cuda"
     )
@@ -810,12 +864,12 @@ def check_model_f32(cfg, params) -> dict:
     return {"logit_scale": scale, "err_vs_plain_scan": err_ref, "err_prefill_vs_decode": err_dec}
 
 
-def serve_batches(cfg, params) -> dict:
-    """Two batches of 4 requests (prompts of 1024, then 1000 tokens; 32 new
-    tokens each) through ServeEngine; times prefill and each decode step."""
+def serve_batches(cfg, params, prompt_lens=(1024, 1000), max_len: int = 2048) -> dict:
+    """One batch of 4 requests per prompt length (32 new tokens each) through
+    ServeEngine; times prefill and each decode step."""
     from repro_torch.serve.engine import Request, ServeEngine
 
-    eng = ServeEngine(cfg, params, max_len=2048, batch_size=4, device="cuda")
+    eng = ServeEngine(cfg, params, max_len=max_len, batch_size=4, device="cuda")
     times, last = {"prefill": [], "decode": []}, {}
 
     def timed(kind, fn):
@@ -834,7 +888,7 @@ def serve_batches(cfg, params) -> dict:
     rng = np.random.default_rng(0)
     new_tokens, sid, batches = 32, 0, []
     torch.cuda.reset_peak_memory_stats()
-    for prompt_len in (1024, 1000):
+    for prompt_len in prompt_lens:
         reqs = []
         for _ in range(4):
             prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, prompt_len), dtype=torch.int64)
@@ -854,11 +908,13 @@ def serve_batches(cfg, params) -> dict:
     logits = last["decode"][0]  # the step that produced each request's last token
     if logits.shape != (4, 1, cfg.vocab_padded) or torch.isnan(logits).any():
         fail(f"last logits: shape {tuple(logits.shape)} or NaN")
-    steps = len(times["decode"]) // 2
+    n = len(prompt_lens)
+    steps = len(times["decode"]) // n
     return {
         "batches": batches,
-        "prefill_ms": [t * 1e3 for t in times["prefill"][:2]],
-        "decode_ms_per_token": [sum(times["decode"][i * steps:(i + 1) * steps]) / steps * 1e3 for i in range(2)],
+        "max_len": max_len,
+        "prefill_ms": [t * 1e3 for t in times["prefill"][:n]],
+        "decode_ms_per_token": [sum(times["decode"][i * steps:(i + 1) * steps]) / steps * 1e3 for i in range(n)],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }
 
@@ -882,7 +938,7 @@ def phase_serve_mamba2() -> tuple[dict, int]:
     tokens = torch.as_tensor(
         np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 1024)), dtype=torch.int64, device="cuda"
     )
-    prefill = profile(lambda: get_model(cfg).prefill(cfg, params, {"tokens": tokens}, 2048), top=8, named="ssd_")
+    prefill = profile(lambda: get_model(cfg).prefill(cfg, params, {"tokens": tokens}, 2048), top=8, names=("ssd_",))
     return {
         "phase": "serve",
         "arch": cfg.name,
@@ -901,10 +957,8 @@ def check_dense_f32(cfg, params) -> dict:
     prefill(S) against prefill(S-1) + decode."""
     from repro_torch.models import get_model
 
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg32, p32 = f32_twin(cfg, params)
     m = get_model(cfg32)
-    p32 = m.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    p32.load_state_dict(params.state_dict())  # the same weights, computing in float32
     tokens = torch.as_tensor(
         np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 256)), dtype=torch.int64, device="cuda"
     )
@@ -988,7 +1042,7 @@ def phase_dense() -> tuple[dict, dict, int]:
 
     # where the time goes, outside the counted runs: forward, loss_fn and one decode step
     _, cache = m.prefill(cfg, params, {"tokens": tokens}, 2048)
-    forward["profile"] = profile(lambda: m.forward(fcfg, params, batch), top=8, named="flash_attention")
+    forward["profile"] = profile(lambda: m.forward(fcfg, params, batch), top=8, names=("flash_attention",))
     forward["loss_fn_profile"] = profile(lambda: m.loss_fn(fcfg, params, batch))
     step = profile(lambda: m.decode_step(cfg, params, cache, tokens[:, -1:]))
     del cache
@@ -1004,6 +1058,215 @@ def phase_dense() -> tuple[dict, dict, int]:
         "nvidia_smi": smi(),
     }
     return forward, serve, launches
+
+
+def check_hybrid_f32(cfg, params) -> dict:
+    """Full-width hybrid in float32 on (2, 256) tokens: forward through both
+    kernels against forward through the plain scan and plain attention;
+    forward with flash against forward with the plain attention (the scan
+    kernel in both); prefill(S) against prefill(S-1) + decode."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models import get_model
+
+    cfg32, p32 = f32_twin(cfg, params)
+    m = get_model(cfg32)
+    tokens = torch.as_tensor(
+        np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 256)), dtype=torch.int64, device="cuda"
+    )
+    flash_cfg, xla_cfg = (dataclasses.replace(cfg32, attention_impl=i) for i in ("flash", "xla"))
+    kernels, _ = m.forward(flash_cfg, p32, {"tokens": tokens})
+    xla, _ = m.forward(xla_cfg, p32, {"tokens": tokens})
+    kernel_scan = ssd_ops.ssd_scan
+    ssd_ops.ssd_scan = lambda *a, chunk: ssd_scan_ref(*a, chunk=chunk)
+    try:
+        plain, _ = m.forward(xla_cfg, p32, {"tokens": tokens})
+    finally:
+        ssd_ops.ssd_scan = kernel_scan
+    full, _ = m.prefill(cfg32, p32, {"tokens": tokens}, 512)
+    _, cache = m.prefill(cfg32, p32, {"tokens": tokens[:, :-1]}, 512)
+    dec, _ = m.decode_step(cfg32, p32, cache, tokens[:, -1:])
+    del p32, cache
+    torch.cuda.synchronize()
+    if kernels.shape != (2, 256, cfg.vocab_padded) or not torch.isfinite(kernels).all():
+        fail(f"f32 hybrid forward: logits of shape {tuple(kernels.shape)} or not finite")
+    scale = plain.abs().max().item()
+    errs = {
+        "err_kernels_vs_plain": (kernels - plain).abs().max().item(),
+        "err_flash_vs_plain_attention": (kernels - xla).abs().max().item(),
+        "err_prefill_vs_decode": (dec - full).abs().max().item(),
+        "err_prefill_vs_forward": (full[:, 0] - plain[:, -1]).abs().max().item(),
+    }
+    if any(e > 1e-3 * scale for e in errs.values()):
+        fail(f"f32 hybrid check: {errs}, logit scale {scale}")
+    return {"logit_scale": scale, **errs}
+
+
+def phase_hybrid() -> tuple[dict, dict, dict]:
+    """zamba2-2.7b at full width and depth: forward and loss_fn through both
+    kernels (54 ssd_scan and 9 flash_attention launches a call), then serving
+    (54 ssd_scan launches a prefill, no flash_attention)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import get_model
+
+    cfg = ARCHS["zamba2-2.7b"]
+    sites = cfg.num_layers // cfg.attn_every
+    m = get_model(cfg)
+    params = m.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    model_check = check_hybrid_f32(cfg, params)
+
+    fcfg = dataclasses.replace(cfg, attention_impl="flash")
+    tokens = torch.as_tensor(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (4, 1024)), dtype=torch.int64, device="cuda"
+    )
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    calls = {  # the first forward warms cuBLAS and the allocator; the second is timed warm
+        "forward_cold": lambda: m.forward(fcfg, params, batch)[0],
+        "forward": lambda: m.forward(fcfg, params, batch)[0],
+        "loss_fn": lambda: m.loss_fn(fcfg, params, batch),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ms, per_call, out = {}, {}, {}
+    ssd_ops.LAUNCHES = fa_ops.LAUNCHES = 0
+    for name, fn in calls.items():
+        before = (ssd_ops.LAUNCHES, fa_ops.LAUNCHES)
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        per_call[name] = {"ssd_scan": ssd_ops.LAUNCHES - before[0], "flash_attention": fa_ops.LAUNCHES - before[1]}
+    launches = {"ssd_scan": ssd_ops.LAUNCHES, "flash_attention": fa_ops.LAUNCHES}
+    want = {"ssd_scan": cfg.num_layers, "flash_attention": sites}
+    if any(n != want for n in per_call.values()):
+        fail(f"zamba2 launches per call {per_call}, expected {want} each")
+    logits, loss = out["forward"], out["loss_fn"]
+    if logits.shape != (4, 1024, cfg.vocab_padded) or not torch.isfinite(logits).all():
+        fail(f"zamba2 forward logits: shape {tuple(logits.shape)} or not finite")
+    if loss.shape != () or not torch.isfinite(loss):
+        fail(f"zamba2 loss_fn: {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    del logits, out
+    forward = {
+        "phase": "hybrid_forward",
+        "arch": fcfg.name,
+        "attention_impl": fcfg.attention_impl,
+        "params": n_params,
+        "tokens": list(tokens.shape),
+        "ms": ms,
+        "loss": loss.item(),
+        "launches_per_call": per_call,
+        "max_memory_allocated": peak,
+        "model_check_f32": model_check,
+    }
+
+    ssd_ops.LAUNCHES = fa_ops.LAUNCHES = 0
+    served = serve_batches(cfg, params)
+    serve_launches = {"ssd_scan": ssd_ops.LAUNCHES, "flash_attention": fa_ops.LAUNCHES}
+    if serve_launches != {"ssd_scan": 2 * cfg.num_layers, "flash_attention": 0}:
+        fail(f"zamba2 serving launched {serve_launches}, expected {2 * cfg.num_layers} ssd_scan, 0 flash_attention")
+
+    # where the time goes, outside the counted runs: forward, loss_fn, one prefill and one decode step
+    prof = profile(lambda: m.forward(fcfg, params, batch), top=8, names=("ssd_", "flash_attention"))
+    if not prof["ssd__ms"] or not prof["flash_attention_ms"]:
+        fail(f"the profiled zamba2 forward shows no kernel of the path on the device: {prof}")
+    forward["profile"] = prof
+    forward["device_share"] = {"ssd_scan": prof["ssd__ms"] / prof["device_busy_ms"],
+                               "flash_attention": prof["flash_attention_ms"] / prof["device_busy_ms"]}
+    forward["loss_fn_profile"] = profile(lambda: m.loss_fn(fcfg, params, batch))
+    _, cache = m.prefill(cfg, params, {"tokens": tokens}, 2048)
+    prefill_prof = profile(lambda: m.prefill(cfg, params, {"tokens": tokens}, 2048), top=8, names=("ssd_",))
+    step = profile(lambda: m.decode_step(cfg, params, cache, tokens[:, -1:]))
+    del cache
+    hd, e = cfg.resolved_head_dim, torch.finfo(torch.bfloat16).bits // 8
+    serve = {
+        "phase": "serve_hybrid",
+        "arch": cfg.name,
+        "params": n_params,
+        **served,
+        "launches": serve_launches,
+        "kv_cache_bytes": sites * 2 * 4 * 2048 * cfg.num_kv_heads * hd * e,  # from the shapes
+        "prefill_profile": prefill_prof,
+        "decode_step_profile": step,
+        "nvidia_smi": smi(),
+    }
+    forward["nvidia_smi"] = serve["nvidia_smi"]
+    return forward, serve, {"zamba2_forward": launches, "zamba2_serve": serve_launches}
+
+
+def check_prefill_decode_f32(cfg, params) -> dict:
+    """prefill(S) against prefill(S-1) + decode in float32 on (2, 256) tokens,
+    with the stub frontends' inputs seeded.  The MoE twin routes with
+    capacity_factor = E / K, which drops no (token, k) pair: capacity is set
+    per dispatch group (a prompt row, or one decoded token), so with drops
+    the two routes differ in the reference too."""
+    from repro_torch.models import get_model
+
+    changes = {"capacity_factor": cfg.num_experts / cfg.top_k} if cfg.family == "moe" else {}
+    cfg32, p32 = f32_twin(cfg, params, **changes)
+    m = get_model(cfg32)
+    r = np.random.default_rng(7)
+    tokens = torch.as_tensor(r.integers(0, cfg.vocab_size, (2, 256)), dtype=torch.int64, device="cuda")
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = torch.tensor(r.standard_normal((2, cfg.num_patches, cfg.d_model)) * 0.02,
+                                             dtype=torch.float32, device="cuda")
+    if cfg.family == "encdec":
+        extra["frame_embeds"] = torch.tensor(r.standard_normal((2, cfg.encoder_frames, cfg.d_model)),
+                                             dtype=torch.float32, device="cuda")
+    full, _ = m.prefill(cfg32, p32, {"tokens": tokens, **extra}, 512)
+    _, cache = m.prefill(cfg32, p32, {"tokens": tokens[:, :-1], **extra}, 512)
+    dec, _ = m.decode_step(cfg32, p32, cache, tokens[:, -1:])
+    del p32, cache
+    torch.cuda.synchronize()
+    if full.shape != (2, 1, cfg.vocab_padded) or not torch.isfinite(full).all():
+        fail(f"f32 {cfg.name} prefill: logits of shape {tuple(full.shape)} or not finite")
+    scale = full.abs().max().item()
+    err = (dec - full).abs().max().item()
+    if err > 1e-3 * scale:
+        fail(f"f32 {cfg.name} check: |prefill - decode| {err}, logit scale {scale}")
+    return {"logit_scale": scale, "err_prefill_vs_decode": err, **changes}
+
+
+def phase_families() -> list[dict]:
+    """The other families at full width, each cut in depth as FAMILIES says:
+    an f32-twin prefill-vs-decode check and one ServeEngine batch of 4.
+    They run no custom kernel; the counts show it."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import get_model
+
+    lines = []
+    for name, layers, prompt_len, max_len in FAMILIES:
+        full = ARCHS[name]
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        params = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        n_params = sum(p.numel() for p in params.parameters())
+        model_check = check_prefill_decode_f32(cfg, params)
+        ssd_ops.LAUNCHES = fa_ops.LAUNCHES = 0
+        served = serve_batches(cfg, params, prompt_lens=(prompt_len,), max_len=max_len)
+        launches = {"ssd_scan": ssd_ops.LAUNCHES, "flash_attention": fa_ops.LAUNCHES}
+        if any(launches.values()):
+            fail(f"{name} serving launched {launches}: this family runs no custom kernel")
+        del params
+        lines.append({
+            "phase": "serve_family",
+            "arch": name,
+            "family": cfg.family,
+            "layers": cfg.num_layers,
+            "reduced": {} if layers is None else {"num_layers": [full.num_layers, layers]},
+            "encoder_layers": cfg.encoder_layers or None,
+            "params": n_params,
+            **served,
+            "launches": launches,
+            "model_check_f32": model_check,
+            "nvidia_smi": smi(),
+        })
+    return lines
 
 
 def main() -> None:
@@ -1038,15 +1301,29 @@ def main() -> None:
     emit(phase_store())
     bench, bench_kernel_rows = phase_bench()
     emit(bench)
-    serve, ssd_row["launches"] = phase_serve_mamba2()
+    serve, mamba2_launches = phase_serve_mamba2()
     emit(serve)
-    forward, serve_dense, fa_row["launches"] = phase_dense()
+    forward, serve_dense, dense_launches = phase_dense()
     prof = forward["profile"]
     if not prof["flash_attention_ms"]:
         fail("the profiled forward shows no flash_attention kernel on the device")
     fa_row["forward_device_share"] = prof["flash_attention_ms"] / prof["device_busy_ms"]
     emit(forward)
     emit(serve_dense)
+    hybrid, serve_hybrid, hybrid_launches = phase_hybrid()
+    emit(hybrid)
+    emit(serve_hybrid)
+    for line in phase_families():
+        emit(line)
+    # each kernel's launches in the counted runs of the main paths, by path
+    ssd_row["launches_by_path"] = {"mamba2_serve": mamba2_launches,
+                                   **{k: v["ssd_scan"] for k, v in hybrid_launches.items()}}
+    fa_row["launches_by_path"] = {"qwen2.5-3b_forward": dense_launches,
+                                  **{k: v["flash_attention"] for k, v in hybrid_launches.items()}}
+    for row in (ssd_row, fa_row):
+        row["launches"] = sum(row["launches_by_path"].values())
+    fa_row["zamba2_forward_device_share"] = hybrid["device_share"]["flash_attention"]
+    ssd_row["zamba2_forward_device_share"] = hybrid["device_share"]["ssd_scan"]
     for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row), ("merge_runs", merge_row)):
         row["bench_shape"] = bench_kernel_rows[name]
     emit({"kernels": [ssd_row, fa_row, merge_row]})

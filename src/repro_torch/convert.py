@@ -1,11 +1,13 @@
 """Carry the reference's params across: its param tree into the port's modules.
 
 ``tree`` is the reference's nested dict of numpy arrays
-(``jax.tree.map(np.asarray, params)``).  Stacked leaves under ``layers`` have
-the layer index as their leading axis: ``layers/ssm/wz[i]`` fills
-``layers.{i}.ssm.wz`` and ``layers/attn/wq[i]`` fills ``layers.{i}.attn.wq``.
+(``jax.tree.map(np.asarray, params)``).  Stacked leaves under ``layers``,
+``enc_layers`` and ``dec_layers`` have the layer index as their leading
+axis: ``layers/ssm/wz[i]`` fills ``layers.{i}.ssm.wz`` and
+``dec_layers/cross_attn/wq[i]`` fills ``dec_layers.{i}.cross_attn.wq``.
 Every other leaf maps by its path, with ``/`` for ``.`` (``embedding/embed``,
-``final_norm/scale``).  With tied embeddings neither side has ``unembed``.
+``final_norm/scale``, the hybrid's ``shared_block/attn/wq``).  With tied
+embeddings neither side has ``unembed``.
 """
 from __future__ import annotations
 
@@ -25,13 +27,16 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def _port_leaves(tree) -> dict[str, np.ndarray]:
     leaves: dict[str, np.ndarray] = {}
     for path, arr in _flatten(tree).items():
-        if path.startswith("layers/"):
-            rest = path[len("layers/"):].replace("/", ".")
+        stack, _, rest = path.partition("/")
+        if stack in STACKED:
             for i in range(arr.shape[0]):
-                leaves[f"layers.{i}.{rest}"] = arr[i]
+                leaves[f"{stack}.{i}.{rest.replace('/', '.')}"] = arr[i]
         else:
             leaves[path.replace("/", ".")] = arr
     return leaves

@@ -1,7 +1,8 @@
 """Serving launcher: `python -m repro_torch.launch.serve --arch <id> [...]`.
 
 Runs the batched engine with hybrid KV-cache placement on synthetic request
-streams and reports throughput + cache-manager placement stats.  Runs on the
+streams and reports throughput + cache-manager placement stats, for the
+reduced config of any ``--arch`` of the registry (every family).  Runs on the
 card unless ``--device cpu`` is given.
 """
 from __future__ import annotations

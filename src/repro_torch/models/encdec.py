@@ -1,0 +1,226 @@
+"""Whisper-style encoder-decoder backbone (audio family).
+
+As in the reference, the conv/mel frontend is a stub: the batch carries
+precomputed frame embeddings ``frame_embeds`` (B, frames, d_model).  The rest
+is the real architecture: sinusoidal encoder positions, learned decoder
+positions, pre-LayerNorm blocks with GELU MLPs, decoder causal
+self-attention and cross-attention over the encoder output, no RoPE
+(whisper uses absolute positions).
+
+``init_params`` returns an ``EncDec`` module whose leaves carry the
+reference's names (``embedding.embed``, ``dec_pos``, ``enc_layers.{i}...``,
+``dec_layers.{i}...``, ``enc_norm``, ``dec_norm``), so that
+``convert.load_jax_params`` maps the reference's tree 1:1.  The cache adds
+``cross_k`` and ``cross_v`` (layers, B, frames, K, hd), the encoder's K/V per
+decoder layer, computed once by ``prefill``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from .config import ArchConfig
+from .layers import (
+    _device,
+    _dtype,
+    _normal,
+    _project_qkv,
+    _sdpa,
+    attention_init,
+    cross_attention,
+    gelu_mlp,
+    gelu_mlp_init,
+    layernorm,
+    layernorm_init,
+    sinusoid_positions,
+)
+from .transformer import _check, cross_entropy
+
+MAX_DECODER_POS = 65536  # learned decoder positions (covers the 32k shapes)
+
+
+class EncLayer(nn.Module):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        dt = _dtype(cfg.param_dtype)
+        self.ln1 = layernorm_init(cfg.d_model, dt, device)
+        self.ln2 = layernorm_init(cfg.d_model, dt, device)
+        self.attn = attention_init(cfg, generator, device)
+        self.mlp = gelu_mlp_init(cfg.d_model, cfg.d_ff, dt, generator, device)
+
+
+class DecLayer(nn.Module):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        dt = _dtype(cfg.param_dtype)
+        self.ln1 = layernorm_init(cfg.d_model, dt, device)
+        self.lnx = layernorm_init(cfg.d_model, dt, device)
+        self.ln2 = layernorm_init(cfg.d_model, dt, device)
+        self.self_attn = attention_init(cfg, generator, device)
+        self.cross_attn = attention_init(cfg, generator, device)
+        self.mlp = gelu_mlp_init(cfg.d_model, cfg.d_ff, dt, generator, device)
+
+
+class TokenEmbedding(nn.Module):
+    """The decoder's token table, (V, D); the logits reuse it (tied)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        self.embed = _normal((cfg.vocab_padded, cfg.d_model), 0.02, _dtype(cfg.param_dtype), generator, device)
+
+
+class EncDec(nn.Module):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        dt = _dtype(cfg.param_dtype)
+        self.cfg = cfg
+        self.embedding = TokenEmbedding(cfg, generator, device)
+        self.dec_pos = _normal((MAX_DECODER_POS, cfg.d_model), 0.01, dt, generator, device)
+        self.enc_layers = nn.ModuleList(EncLayer(cfg, generator, device) for _ in range(cfg.encoder_layers))
+        self.dec_layers = nn.ModuleList(DecLayer(cfg, generator, device) for _ in range(cfg.num_layers))
+        self.enc_norm = layernorm_init(cfg.d_model, dt, device)
+        self.dec_norm = layernorm_init(cfg.d_model, dt, device)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator | None = None, device=None) -> EncDec:
+    """Random params with the reference's scales (not its random bits).
+
+    ``device`` None means the card.  Without a ``generator`` one on that
+    device is seeded with 0.
+    """
+    if cfg.family != "encdec":
+        raise ValueError(f"family {cfg.family!r} is not encdec (decoder-only LMs: models/transformer.py)")
+    dev = _device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return EncDec(cfg, generator, dev)
+
+
+# ------------------------------------------------------------------ encoder
+def encode(cfg: ArchConfig, params: EncDec, frame_embeds: torch.Tensor) -> torch.Tensor:
+    cd = _dtype(cfg.compute_dtype)
+    f = frame_embeds.shape[1]
+    x = frame_embeds.to(cd) + sinusoid_positions(f, cfg.d_model, frame_embeds.device).to(cd)[None]
+    for lp in params.enc_layers:
+        q, k, v = _project_qkv(cfg, lp.attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
+        h = _sdpa(cfg, q, k, v, lp.attn.kvm, causal=False)
+        x = x + torch.einsum("bshk,hkd->bsd", h, lp.attn.wo.to(cd))
+        x = x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
+    return layernorm(params.enc_norm, x, cfg.norm_eps)
+
+
+# ------------------------------------------------------------------ decoder
+def _cross_kv(cfg: ArchConfig, lp: DecLayer, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    cd = _dtype(cfg.compute_dtype)
+    kx = torch.einsum("bfd,dhk->bfhk", enc_out, lp.cross_attn.wk.to(cd))
+    vx = torch.einsum("bfd,dhk->bfhk", enc_out, lp.cross_attn.wv.to(cd))
+    return kx, vx
+
+
+def _dec_tail(cfg: ArchConfig, lp: DecLayer, x: torch.Tensor, kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Cross-attention over the encoder's K/V, then the GELU MLP."""
+    x = x + cross_attention(cfg, lp.cross_attn, layernorm(lp.lnx, x, cfg.norm_eps), kv)
+    return x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
+
+
+def _embed_tokens(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor, start: int) -> torch.Tensor:
+    """Token embeddings plus the learned positions from ``start``."""
+    cd = _dtype(cfg.compute_dtype)
+    pos = params.dec_pos[start:start + tokens.shape[1]].to(cd)
+    return params.embedding.embed[tokens].to(cd) + pos[None]
+
+
+def _logits(cfg: ArchConfig, params: EncDec, x: torch.Tensor) -> torch.Tensor:
+    cd = _dtype(cfg.compute_dtype)
+    return torch.einsum("bsd,vd->bsv", layernorm(params.dec_norm, x, cfg.norm_eps), params.embedding.embed.to(cd))
+
+
+def _prefix(cfg: ArchConfig, params: EncDec, batch: dict[str, Any], cache: dict[str, Any] | None = None):
+    """The decoder over the whole prompt; fills ``cache``'s K/V and cross K/V when given."""
+    cd = _dtype(cfg.compute_dtype)
+    enc_out = encode(cfg, params, batch["frame_embeds"])
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    x = _embed_tokens(cfg, params, tokens, 0)
+    for i, lp in enumerate(params.dec_layers):
+        kv = _cross_kv(cfg, lp, enc_out)
+        q, k, v = _project_qkv(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
+        h = _sdpa(cfg, q, k, v, lp.self_attn.kvm, causal=True)
+        x = x + torch.einsum("bshk,hkd->bsd", h, lp.self_attn.wo.to(cd))
+        x = _dec_tail(cfg, lp, x, kv)
+        if cache is not None:
+            cache["k"][i, :, :s] = k.to(cache["k"].dtype)
+            cache["v"][i, :, :s] = v.to(cache["v"].dtype)
+            cache["cross_k"][i], cache["cross_v"][i] = kv
+    return x
+
+
+@torch.inference_mode()
+def forward(cfg: ArchConfig, params: EncDec, batch: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
+    """batch: ``tokens`` (B, S) and ``frame_embeds`` (B, F, D) -> (logits (B, S, V), zero aux)."""
+    _check(cfg, params)
+    x = _prefix(cfg, params, batch)
+    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@torch.inference_mode()
+def loss_fn(cfg: ArchConfig, params: EncDec, batch: dict[str, Any]) -> torch.Tensor:
+    """Next-token cross entropy in float32.  Labels < 0 are ignored."""
+    logits, _ = forward(cfg, params, batch)
+    return cross_entropy(logits, batch["labels"])
+
+
+# -------------------------------------------------------------------- cache
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    """Zero cache; ``device`` None means the card."""
+    dev = _device(device)
+    hd, L = cfg.resolved_head_dim, cfg.num_layers
+    self_shape = (L, batch, max_len, cfg.num_kv_heads, hd)
+    cross_shape = (L, batch, cfg.encoder_frames, cfg.num_kv_heads, hd)
+    return {
+        "k": torch.zeros(self_shape, dtype=dtype, device=dev),
+        "v": torch.zeros(self_shape, dtype=dtype, device=dev),
+        "cross_k": torch.zeros(cross_shape, dtype=dtype, device=dev),
+        "cross_v": torch.zeros(cross_shape, dtype=dtype, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+@torch.inference_mode()
+def prefill(cfg: ArchConfig, params: EncDec, batch: dict[str, Any], max_len: int):
+    """Encode the frames and run the prompt, returning (last-position logits, primed cache)."""
+    _check(cfg, params)
+    b, s = batch["tokens"].shape
+    f = batch["frame_embeds"].shape[1]
+    cache = init_cache(dataclasses.replace(cfg, encoder_frames=f), b, max(max_len, s),
+                       _dtype(cfg.compute_dtype), batch["tokens"].device)
+    x = _prefix(cfg, params, batch, cache)
+    cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    return _logits(cfg, params, x[:, -1:]), cache
+
+
+@torch.inference_mode()
+def decode_step(cfg: ArchConfig, params: EncDec, cache, tokens: torch.Tensor):
+    """One-token decode; cross K/V comes precomputed from prefill.
+
+    The input cache is left as it was: the new self-attention K/V are one
+    copy per step, into which each layer writes its row in place.
+    """
+    _check(cfg, params)
+    cd = _dtype(cfg.compute_dtype)
+    pos = int(cache["pos"])
+    x = _embed_tokens(cfg, params, tokens, pos)
+    new_k, new_v = cache["k"].clone(), cache["v"].clone()
+    for i, lp in enumerate(params.dec_layers):
+        q, k_new, v_new = _project_qkv(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
+        new_k[i, :, pos] = k_new[:, 0].to(new_k.dtype)
+        new_v[i, :, pos] = v_new[:, 0].to(new_v.dtype)
+        h = _sdpa(cfg, q, new_k[i].to(cd), new_v[i].to(cd), lp.self_attn.kvm, causal=True, q_offset=pos)
+        x = x + torch.einsum("bshk,hkd->bsd", h, lp.self_attn.wo.to(cd))
+        x = _dec_tail(cfg, lp, x, (cache["cross_k"][i], cache["cross_v"][i]))
+    new_cache = dict(cache)
+    new_cache["k"], new_cache["v"], new_cache["pos"] = new_k, new_v, cache["pos"] + 1
+    return _logits(cfg, params, x), new_cache

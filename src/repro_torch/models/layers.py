@@ -1,5 +1,6 @@
-"""Shared neural layers: RMSNorm, RoPE, GQA attention (with KV cache), SwiGLU,
-and the embedding.
+"""Shared neural layers: RMSNorm and LayerNorm, RoPE, GQA attention (with KV
+cache) and cross attention, SwiGLU and GELU MLPs, sinusoid positions, and the
+embedding.
 
 Parameters are ``nn.Module``s whose leaves carry the reference's names and
 layouts (``embed`` as (V, D), ``unembed`` as (D, V), ``scale``, ``wq`` as
@@ -55,6 +56,35 @@ def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params.scale.to(torch.float32)).to(dt)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, dtype, device):
+        super().__init__()
+        self.scale = _param(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = _param(torch.zeros(dim, dtype=dtype, device=device))
+
+
+def layernorm_init(dim: int, dtype, device) -> LayerNorm:
+    return LayerNorm(dim, dtype, device)
+
+
+def layernorm(params: LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params.scale.to(torch.float32) + params.bias.to(torch.float32)).to(dt)
+
+
+def sinusoid_positions(length: int, dim: int, device) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (length, dim), float32."""
+    half = dim // 2
+    step = torch.log(torch.tensor(10000.0, device=device)) / (half - 1)  # in float32, as the reference
+    scale = torch.exp(-torch.arange(half, dtype=torch.float32, device=device) * step)
+    ang = torch.arange(length, dtype=torch.float32, device=device)[:, None] * scale[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------- rope
@@ -224,6 +254,16 @@ def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict
     return y, {"k": k_cache, "v": v_cache}
 
 
+def cross_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                    kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (whisper)."""
+    cd = _dtype(cfg.compute_dtype)
+    q = torch.einsum("bsd,dhk->bshk", x.to(cd), p.wq.to(cd))
+    k, v = kv
+    out = _sdpa(cfg, q, k.to(cd), v.to(cd), p.kvm, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd))
+
+
 # ----------------------------------------------------------------------- mlp
 class MLP(nn.Module):
     """SwiGLU: ``down(silu(x @ gate) * (x @ up))``."""
@@ -246,6 +286,28 @@ def mlp(p: MLP, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     g = x @ p.gate.to(cd)
     u = x @ p.up.to(cd)
     return (F.silu(g) * u) @ p.down.to(cd)
+
+
+class GeluMLP(nn.Module):
+    """``gelu(x @ wi + bi) @ wo + bo``, the tanh form of GELU (``jax.nn.gelu``'s default)."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, generator: torch.Generator, device):
+        super().__init__()
+        self.wi = _normal((d_model, d_ff), d_model**-0.5, dtype, generator, device)
+        self.bi = _param(torch.zeros(d_ff, dtype=dtype, device=device))
+        self.wo = _normal((d_ff, d_model), d_ff**-0.5, dtype, generator, device)
+        self.bo = _param(torch.zeros(d_model, dtype=dtype, device=device))
+
+
+def gelu_mlp_init(d_model: int, d_ff: int, dtype, generator: torch.Generator, device) -> GeluMLP:
+    return GeluMLP(d_model, d_ff, dtype, generator, device)
+
+
+def gelu_mlp(p: GeluMLP, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    cd = _dtype(compute_dtype)
+    x = x.to(cd)
+    h = F.gelu(x @ p.wi.to(cd) + p.bi.to(cd), approximate="tanh")
+    return h @ p.wo.to(cd) + p.bo.to(cd)
 
 
 # ----------------------------------------------------------------- embedding

@@ -1,14 +1,18 @@
-"""Decoder-only LM composition; the port has the ``ssm`` and ``dense`` families so far.
+"""Decoder-only LM composition for the dense / MoE / SSM / hybrid / VLM families.
 
 ``init_params`` returns an ``nn.Module`` (``LM``) whose layers sit in an
 ``nn.ModuleList``; the functions take it where the reference takes its param
-tree, and the reference's ``lax.scan`` over stacked layers becomes a loop.
-``remat`` is ignored: this is inference.  The cache keeps the reference's
-stacked layouts:
+tree, and the reference's ``lax.scan`` over stacked layers becomes a loop
+(its ``lax.cond`` an ``if``).  ``remat`` is ignored: this is inference.  The
+hybrid (zamba2-style) family runs Mamba2 layers and applies ONE
+weight-shared attention block (``shared_block``) after every
+``attn_every``-th layer; each application site has its own K/V cache (weights
+shared, caches not).  The cache keeps the reference's stacked layouts:
 
 - ssm: ``ssm.state`` (layers, B, H, P, N) float32, ``ssm.conv``
   (layers, B, conv_width-1, conv_dim) in the cache dtype, ``pos``;
-- dense: ``k`` and ``v`` (layers, B, max_len, K, hd) in the cache dtype, ``pos``.
+- hybrid: the ssm leaves, and ``k`` and ``v`` (sites, B, max_len, K, hd);
+- dense, moe and vlm: ``k`` and ``v`` (layers, B, max_len, K, hd), ``pos``.
 
 With ``attention_impl="flash"`` the full-sequence attention of ``forward``
 (and so of ``loss_fn``) runs the flash-attention kernel; ``prefill`` and
@@ -17,6 +21,7 @@ With ``attention_impl="flash"`` the full-sequence attention of ``forward``
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -39,26 +44,15 @@ from .layers import (
     rmsnorm_init,
     unembed,
 )
+from .moe import moe_apply, moe_init
 from .ssm import Mamba2Mixer, ssm_init_cache
 
-_PORTED = ("ssm", "dense")
-_NOT_PORTED = (
-    "family {!r} is not ported yet: ROADMAP.md §1 lists the LM models "
-    "(MoE, hybrid, VLM, encdec) as a later slice"
-)
 
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(_NOT_PORTED.format(cfg.family))
-
-
-def _check(cfg: ArchConfig, params: "LM") -> None:
-    """The modules compute with the config they were built with; refuse another.
+def _check(cfg: ArchConfig, params: nn.Module) -> None:
+    """The modules (an ``LM`` or an ``EncDec``) compute with the config they were built with; refuse another.
 
     ``attention_impl`` is read per call and built into no module, so it may differ.
     """
-    _check_family(cfg)
     built = dataclasses.replace(params.cfg, attention_impl=cfg.attention_impl)
     if built != cfg:
         diff = {k: (v, getattr(cfg, k)) for k, v in vars(built).items() if getattr(cfg, k) != v}
@@ -74,26 +68,41 @@ class Mamba2Layer(nn.Module):
 
 
 class DenseLayer(nn.Module):
-    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+    """Attention then an MLP, or with ``moe`` the MoE layer; also the hybrid's shared block."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device, *, moe: bool = False):
         super().__init__()
         dt = _dtype(cfg.param_dtype)
         self.ln1 = rmsnorm_init(cfg.d_model, dt, device)
         self.ln2 = rmsnorm_init(cfg.d_model, dt, device)
         self.attn = attention_init(cfg, generator, device)
-        self.mlp = mlp_init(cfg.d_model, cfg.d_ff, dt, generator, device)
+        if moe:
+            self.moe = moe_init(cfg, generator, device)
+        else:
+            self.mlp = mlp_init(cfg.d_model, cfg.d_ff, dt, generator, device)
 
 
-_LAYER = {"ssm": Mamba2Layer, "dense": DenseLayer}
+_LAYER = {
+    "ssm": Mamba2Layer,
+    "hybrid": Mamba2Layer,
+    "dense": DenseLayer,
+    "vlm": DenseLayer,
+    "moe": functools.partial(DenseLayer, moe=True),
+}
 
 
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
         super().__init__()
+        if cfg.family not in _LAYER:
+            raise ValueError(f"family {cfg.family!r} is not a decoder-only LM (encdec: models/encdec.py)")
         self.cfg = cfg
         self.embedding = embedding_init(cfg, generator, device)
         self.final_norm = rmsnorm_init(cfg.d_model, _dtype(cfg.param_dtype), device)
         layer = _LAYER[cfg.family]
         self.layers = nn.ModuleList(layer(cfg, generator, device) for _ in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            self.shared_block = DenseLayer(cfg, generator, device)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None, device=None) -> LM:
@@ -102,7 +111,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None, devic
     ``device`` None means the card.  Without a ``generator`` one on that
     device is seeded with 0.
     """
-    _check_family(cfg)
     dev = _device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -114,66 +122,121 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def _dense_body(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block's second half, x + ffn(ln2(x)), and the MoE aux loss (zero without MoE)."""
+    xn = rmsnorm(lp.ln2, x, cfg.norm_eps)
+    if cfg.family == "moe":
+        out, aux = moe_apply(cfg, lp.moe, xn)
+        return x + out, aux
+    return x + mlp(lp.mlp, xn, cfg.compute_dtype), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _dense_body(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, positions: torch.Tensor):
     x = x + attention(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
-    return x + mlp(lp.mlp, rmsnorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
+    return _ffn(cfg, lp, x)
+
+
+def _shared_site(cfg: ArchConfig, i: int) -> bool:
+    """Whether the hybrid's shared block follows Mamba2 layer ``i``; its site is (i+1)//attn_every - 1."""
+    return cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0
+
+
+def _embed_inputs(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.Tensor:
+    """Token embeddings; for the vlm family the patch embeddings come first."""
+    x = embed(cfg, params.embedding, batch["tokens"])
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 @torch.inference_mode()
 def forward(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits over token positions, aux_loss)."""
+    """Full-sequence forward.  Returns (logits over token positions, aux_loss).
+
+    The aux loss is the MoE layers' load-balancing loss summed over layers
+    (zero for the other families).
+    """
     _check(cfg, params)
-    x = embed(cfg, params.embedding, batch["tokens"])
-    if cfg.family == "ssm":
-        for lp in params.layers:
+    x = _embed_inputs(cfg, params, batch)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        for i, lp in enumerate(params.layers):
             x = x + lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps))
+            if _shared_site(cfg, i):
+                x, _ = _dense_body(cfg, params.shared_block, x, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        positions = _positions(x.shape[0], x.shape[1], x.device)
+        auxs = []
         for lp in params.layers:
-            x = _dense_body(cfg, lp, x, positions)
+            x, a = _dense_body(cfg, lp, x, positions)
+            auxs.append(a)
+        aux = torch.stack(auxs).sum()
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = unembed(cfg, params.embedding, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = x[:, batch["patch_embeds"].shape[1]:]
+    return unembed(cfg, params.embedding, x), aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in float32 over labels >= 0."""
+    lg = logits.to(torch.float32)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 @torch.inference_mode()
 def loss_fn(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.Tensor:
     """Next-token cross entropy (+ MoE aux), in float32.  Labels < 0 are ignored."""
     logits, aux = forward(cfg, params, batch)
-    labels = batch["labels"]
-    lg = logits.to(torch.float32)
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
-    mask = (labels >= 0).to(torch.float32)
-    nll = (logz - gold) * mask
-    loss = nll.sum() / mask.sum().clamp(min=1.0)
-    return loss + 0.01 * aux
+    return cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
 
 # -------------------------------------------------------------------- cache
+def _kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict[str, torch.Tensor]:
+    """Zero K/V, one row per attention layer (the hybrid: per shared-block site); none for ssm."""
+    if cfg.family == "ssm":
+        return {}
+    rows = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
+    shape = (rows, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
     """Zero cache; ``max_len`` is unused by the ssm family; ``device`` None means the card."""
-    _check_family(cfg)
     dev = _device(device)
-    pos = torch.zeros((), dtype=torch.int32, device=dev)
-    if cfg.family == "ssm":
+    cache: dict[str, Any] = _kv_cache(cfg, batch, max_len, dtype, dev)
+    if cfg.family in ("ssm", "hybrid"):
         caches = ssm_init_cache(cfg, batch, dtype, dev)
-        return {"ssm": {k: v.expand(cfg.num_layers, *v.shape).clone() for k, v in caches.items()}, "pos": pos}
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-        "pos": pos,
-    }
+        cache["ssm"] = {k: v.expand(cfg.num_layers, *v.shape).clone() for k, v in caches.items()}
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return cache
 
 
 # ------------------------------------------------------------------- decode
+def _attn_block_decode(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pos: int) -> torch.Tensor:
+    """One token through an attention block; writes its K/V row into ``k``/``v`` in place."""
+    h, _ = attention_decode(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), {"k": k, "v": v}, pos)
+    return _ffn(cfg, lp, x + h)[0]
+
+
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
-    """One-token decode.  tokens: (B, 1) -> (logits (B,1,V), new cache)."""
+    """One-token decode.  tokens: (B, 1) -> (logits (B,1,V), new cache).
+
+    The input cache is left as it was: the new K/V are one copy per step,
+    into which each attention block writes its row in place.
+    """
     _check(cfg, params)
     x = embed(cfg, params.embedding, tokens)
-    if cfg.family == "ssm":
+    new_cache: dict[str, Any] = {"pos": cache["pos"] + 1}
+    if cfg.family != "ssm":
+        pos = int(cache["pos"])
+        new_k, new_v = cache["k"].clone(), cache["v"].clone()
+        new_cache["k"], new_cache["v"] = new_k, new_v
+    if cfg.family in ("ssm", "hybrid"):
         states, convs = [], []
         for i, lp in enumerate(params.layers):
             sc = {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}
@@ -181,20 +244,13 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
             x = x + h
             states.append(new_sc["state"])
             convs.append(new_sc["conv"])
-        new_cache = {
-            "ssm": {"state": torch.stack(states), "conv": torch.stack(convs)},
-            "pos": cache["pos"] + 1,
-        }
+            if _shared_site(cfg, i):
+                site = (i + 1) // cfg.attn_every - 1
+                x = _attn_block_decode(cfg, params.shared_block, x, new_k[site], new_v[site], pos)
+        new_cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
     else:
-        pos = int(cache["pos"])
-        # one copy per step; attention_decode then writes each layer's row in place
-        new_k, new_v = cache["k"].clone(), cache["v"].clone()
         for i, lp in enumerate(params.layers):
-            xn = rmsnorm(lp.ln1, x, cfg.norm_eps)
-            h, _ = attention_decode(cfg, lp.attn, xn, {"k": new_k[i], "v": new_v[i]}, pos)
-            x = x + h
-            x = x + mlp(lp.mlp, rmsnorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
-        new_cache = {"k": new_k, "v": new_v, "pos": cache["pos"] + 1}
+            x = _attn_block_decode(cfg, lp, x, new_k[i], new_v[i], pos)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return unembed(cfg, params.embedding, x), new_cache
 
@@ -203,34 +259,42 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
 def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
     """Process a full prompt, returning (last-position logits, primed cache).
 
-    For the ssm family the cache holds each layer's final recurrent state and
-    the pre-conv tail that decode's conv continues from.  For the dense family
-    it holds each layer's K/V, zero past the prompt; attention here is the
-    plain path whatever ``attention_impl`` says, as in the reference.
+    For the ssm and hybrid families the cache holds each Mamba2 layer's final
+    recurrent state and the pre-conv tail that decode's conv continues from;
+    for every family with attention it holds each layer's (the hybrid: each
+    site's) K/V, zero past the prompt.  Attention here is the plain path
+    whatever ``attention_impl`` says, as in the reference.  A vlm patch prefix
+    extends the cached sequence, so ``max_len`` grows by its length.
     """
     _check(cfg, params)
-    x = embed(cfg, params.embedding, batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     b, s = x.shape[:2]
     cd = _dtype(cfg.compute_dtype)
-    if cfg.family == "ssm":
+    max_len = max(max_len + (s - batch["tokens"].shape[1]), s)
+    positions = _positions(b, s, x.device)
+    cache: dict[str, Any] = _kv_cache(cfg, b, max_len, cd, x.device)
+
+    def attn_block(lp: DenseLayer, x: torch.Tensor, row: int) -> torch.Tensor:
+        q, k, v = _project_qkv(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps).to(cd), positions)
+        out = _sdpa(cfg, q, k, v, lp.attn.kvm, causal=True, window=cfg.sliding_window)
+        x, _ = _ffn(cfg, lp, x + torch.einsum("bshk,hkd->bsd", out, lp.attn.wo.to(cd)))
+        cache["k"][row, :, :s] = k.to(cache["k"].dtype)
+        cache["v"][row, :, :s] = v.to(cache["v"].dtype)
+        return x
+
+    if cfg.family in ("ssm", "hybrid"):
         states, convs = [], []
-        for lp in params.layers:
+        for i, lp in enumerate(params.layers):
             h, state, conv_tail = lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps), return_state=True)
             x = x + h
             states.append(state.to(torch.float32))
             convs.append(conv_tail.to(cd))
-        cache = {"ssm": {"state": torch.stack(states), "conv": torch.stack(convs)}}
+            if _shared_site(cfg, i):
+                x = attn_block(params.shared_block, x, (i + 1) // cfg.attn_every - 1)
+        cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
     else:
-        positions = _positions(b, s, x.device)
-        cache = init_cache(cfg, b, max(max_len, s), cd, x.device)
         for i, lp in enumerate(params.layers):
-            xn = rmsnorm(lp.ln1, x, cfg.norm_eps)
-            q, k, v = _project_qkv(cfg, lp.attn, xn.to(cd), positions)
-            out = _sdpa(cfg, q, k, v, lp.attn.kvm, causal=True, window=cfg.sliding_window)
-            x = x + torch.einsum("bshk,hkd->bsd", out, lp.attn.wo.to(cd))
-            x = x + mlp(lp.mlp, rmsnorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
-            cache["k"][i, :, :s] = k.to(cache["k"].dtype)
-            cache["v"][i, :, :s] = v.to(cache["v"].dtype)
+            x = attn_block(lp, x, i)
     cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = unembed(cfg, params.embedding, x[:, -1:])

@@ -52,7 +52,11 @@ class ServeEngine:
         Every family but ssm keeps a positional cache of ``max_len`` rows: a
         request that needs more (its prompt, then each generated token but
         the last, which is never fed back) is refused with a ``ValueError``
-        before any request of the batch is admitted.
+        before any request of the batch is admitted.  A vlm's patch prefix
+        does not count: prefill grows the cache by its length.  The stub
+        frontends get zero inputs, as in the reference: ``num_patches``
+        patch embeddings (vlm) and ``encoder_frames`` frame embeddings
+        (encdec) per request.
         """
         assert len(requests) <= self.batch_size
         if self.cfg.family != "ssm":
@@ -70,6 +74,14 @@ class ServeEngine:
                 raise RuntimeError("admission control: cache pool exhausted")
         prompts = torch.stack([r.prompt for r in requests]).to(self.device)
         batch = {"tokens": prompts}
+        if self.cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (len(requests), self.cfg.num_patches, self.cfg.d_model), dtype=torch.float32, device=self.device
+            )
+        if self.cfg.family == "encdec":
+            batch["frame_embeds"] = torch.zeros(
+                (len(requests), self.cfg.encoder_frames, self.cfg.d_model), dtype=torch.float32, device=self.device
+            )
         logits, cache = self.model.prefill(self.cfg, self.params, batch, self.max_len)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         steps = max(r.max_new_tokens for r in requests)

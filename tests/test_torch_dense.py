@@ -1,66 +1,35 @@
 """The port's dense family against the JAX package's, on the CPU.
 
 Each reduced dense config (2 layers, d 64, 4 q heads over 2 kv heads of dim
-16, float32) is built by the reference from PRNGKey(0).  Every leaf that the
-reference initialises to all zeros or all ones (the qkv biases, the norm
-scales) is then moved off that value with seeded noise, so that the biases of
-qwen2.5-3b and the q/k norms of qwen3-8b take part.  Both packages get that
-same numpy tree and see the same tokens.
+16, float32) is built by the reference from PRNGKey(0), with its
+constant-initialised leaves perturbed (``torch_parity.perturbed_tree``), so
+that the biases of qwen2.5-3b and the q/k norms of qwen3-8b take part.  Both
+packages get that same numpy tree and see the same tokens.
 """
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.configs import ARCHS as JAX_ARCHS
 from repro.models import get_model as jax_get_model
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro_torch.configs import ARCHS
-from repro_torch.convert import load_jax_params
 from repro_torch.models import get_model
 from repro_torch.serve.engine import Request, ServeEngine
+from torch_parity import build as _build
+from torch_parity import check_prefill_and_decode, check_prefill_equals_shorter_prefill_and_decode, check_serve
+from torch_parity import close as _close
+from torch_parity import tokens as _tokens
 
-TOL = 1e-4
 DENSE = ["qwen2.5-3b", "qwen3-8b", "phi3-medium-14b", "yi-34b"]
-
-
-def _perturbed_tree(jparams, seed=0):
-    """The reference's params as numpy, with constant-initialised leaves perturbed."""
-    rng = np.random.default_rng(seed)
-
-    def move(a):
-        a = np.asarray(a)
-        if np.all(a == 0) or np.all(a == 1):
-            a = a + (0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
-        return a
-
-    return jax.tree.map(move, jparams)
-
-
-def _build(name, **changes):
-    cfg = dataclasses.replace(ARCHS[name].reduced(), **changes)
-    jcfg = dataclasses.replace(JAX_ARCHS[name].reduced(), **changes)
-    tree = _perturbed_tree(jax_get_model(jcfg).init_params(jcfg, jax.random.PRNGKey(0)))
-    params = get_model(cfg).init_params(cfg, device="cpu")
-    load_jax_params(params, tree)
-    return cfg, params, jcfg, jax.tree.map(jnp.asarray, tree)
 
 
 @pytest.fixture(scope="module", params=DENSE)
 def pair(request):
     return _build(request.param)
-
-
-def _tokens(batch, s, vocab, seed=0):
-    return np.random.default_rng(seed).integers(0, vocab, (batch, s)).astype(np.int32)
-
-
-def _close(port, ref):
-    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
 
 
 def test_perturbation_reaches_bias_and_norm_leaves(pair):
@@ -101,57 +70,19 @@ def test_loss_fn_matches(pair, impl):
 
 @pytest.mark.parametrize("s", [17, 40])
 def test_prefill_and_decode_match(pair, s):
-    cfg, params, jcfg, jparams = pair
-    m, jm = get_model(cfg), jax_get_model(jcfg)
-    tokens = _tokens(2, s, cfg.vocab_size, seed=s)
-    logits, cache = m.prefill(cfg, params, {"tokens": torch.from_numpy(tokens)}, 64)
-    jlogits, jcache = jm.prefill(jcfg, jparams, {"tokens": jnp.asarray(tokens)}, 64)
-    _close(logits, jlogits)
+    cfg = pair[0]
+    cache = check_prefill_and_decode(pair, s)
     assert cache["k"].shape == (cfg.num_layers, 2, 64, cfg.num_kv_heads, cfg.resolved_head_dim)
-    for key in ("k", "v"):
-        assert cache[key].dtype == torch.float32  # the reduced config computes in f32
-        _close(cache[key], jcache[key])
-    assert int(cache["pos"]) == int(jcache["pos"]) == s
-    for step in range(3):
-        tok = np.argmax(np.asarray(jlogits[:, -1]), axis=-1).astype(np.int32)[:, None]
-        logits, cache = m.decode_step(cfg, params, cache, torch.from_numpy(tok))
-        jlogits, jcache = jm.decode_step(jcfg, jparams, jcache, jnp.asarray(tok))
-        _close(logits, jlogits)
-        _close(cache["k"], jcache["k"])
-        _close(cache["v"], jcache["v"])
-        assert int(cache["pos"]) == int(jcache["pos"]) == s + step + 1
+    assert cache["k"].dtype == cache["v"].dtype == torch.float32  # the reduced config computes in f32
+    assert int(cache["pos"]) == s + 3
 
 
 def test_prefill_equals_shorter_prefill_and_decode(pair):
-    cfg, params, _, _ = pair
-    m = get_model(cfg)
-    tokens = torch.from_numpy(_tokens(2, 24, cfg.vocab_size, seed=5))
-    full, cache_full = m.prefill(cfg, params, {"tokens": tokens}, 32)
-    _, cache = m.prefill(cfg, params, {"tokens": tokens[:, :-1]}, 32)
-    before = cache["k"].clone()
-    dec, cache_dec = m.decode_step(cfg, params, cache, tokens[:, -1:])
-    torch.testing.assert_close(dec, full, atol=TOL, rtol=TOL)
-    torch.testing.assert_close(cache_dec["k"], cache_full["k"], atol=TOL, rtol=TOL)
-    torch.testing.assert_close(cache_dec["v"], cache_full["v"], atol=TOL, rtol=TOL)
-    assert torch.equal(cache["k"], before)  # decode_step leaves its input cache as it was
+    check_prefill_equals_shorter_prefill_and_decode(pair)
 
 
 def test_serve_engine_same_tokens_and_cache_stats(pair):
-    cfg, params, jcfg, jparams = pair
-    prompts = _tokens(2, 40, cfg.vocab_size, seed=7)
-    eng = ServeEngine(cfg, params, max_len=64, batch_size=2, device="cpu")
-    jeng = JaxServeEngine(jcfg, jparams, max_len=64, batch_size=2)
-    for round_ in range(2):  # the second round reuses the released cache slots
-        done = eng.run_batch(
-            [Request(10 * round_ + i, torch.from_numpy(p), max_new_tokens=6) for i, p in enumerate(prompts)]
-        )
-        jdone = jeng.run_batch(
-            [JaxRequest(10 * round_ + i, jnp.asarray(p), max_new_tokens=6) for i, p in enumerate(prompts)]
-        )
-        assert [r.output for r in done] == [r.output for r in jdone]
-        assert all(len(r.output) == 6 for r in done)
-        assert eng.cache_mgr.stats() == jeng.cache_mgr.stats()
-        assert eng.cache_mgr.stats()["active"] == 0
+    check_serve(pair)
 
 
 @pytest.mark.parametrize(

@@ -57,6 +57,7 @@ def _check(out, ref, dtype):
     "b,s,h,p,g,n,L",
     [
         (4, 1024, 48, 64, 1, 128, 256),  # mamba2-780m serving shape
+        (4, 1024, 80, 64, 1, 64, 256),  # zamba2-2.7b's Mamba2 layers at 4 x 1024 tokens
         (2, 64, 4, 16, 1, 16, 16),
         (1, 128, 4, 32, 2, 32, 32),
         (2, 256, 8, 64, 1, 64, 64),
@@ -123,6 +124,7 @@ def _fa_inputs(b, s, h, kh, d, seed, dtype, device):
         (2, 1000, 4, 2, 128, 0),   # ragged S, the head dim of qwen2.5-3b
         (1, 77, 2, 1, 24, 20),     # ragged S and window, D % 16 != 0
         (4, 1024, 16, 2, 128, 0),  # the forward shape of qwen2.5-3b
+        (4, 1024, 32, 32, 80, 0),  # zamba2-2.7b's shared block: MHA, D=80 across two 64-column TMA boxes
         # windows that leave some rows no key in their warpgroup's first tile, at head
         # dims where the rounding error of -1e30 * scale * log2(e) is positive
         (2, 128, 4, 2, 64, 32),

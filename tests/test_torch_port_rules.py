@@ -146,15 +146,16 @@ def test_archs_equal_reference():
 
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = ARCHS["mamba2-780m"].reduced()
-    m = get_model(cfg)
-    params = m.init_params(cfg, device="cpu")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ServeEngine(cfg, params, device=None)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        m.init_params(cfg)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        m.init_cache(cfg, 2, 64)
+    for name in ("mamba2-780m", "zamba2-2.7b", "whisper-medium"):  # ssm, hybrid, encdec
+        cfg = ARCHS[name].reduced()
+        m = get_model(cfg)
+        params = m.init_params(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ServeEngine(cfg, params, device=None)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            m.init_params(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            m.init_cache(cfg, 2, 64)
 
 
 def test_functions_refuse_a_config_the_params_were_not_built_for():
@@ -178,9 +179,22 @@ def test_dense_functions_refuse_another_config_but_take_another_attention_impl()
     torch.testing.assert_close(flash, m.forward(cfg, params, {"tokens": tokens})[0])
 
 
-def test_unported_families_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(ARCHS["deepseek-moe-16b"].reduced())
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_arch_builds_and_runs_forward_on_cpu(name):
+    """Every family is ported: the reduced config builds, and forward gives
+    finite logits over the token positions (the vlm's patches sliced off)."""
+    cfg = ARCHS[name].reduced()
+    m = get_model(cfg)
+    params = m.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12), generator=g)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((2, cfg.num_patches, cfg.d_model), generator=g)
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.randn((2, cfg.encoder_frames, cfg.d_model), generator=g)
+    logits, aux = m.forward(cfg, params, batch)
+    assert logits.shape == (2, 12, cfg.vocab_padded) and torch.isfinite(logits).all()
+    assert aux.shape == () and torch.isfinite(aux) and (float(aux) > 0) == (cfg.family == "moe")
 
 
 def _run_launcher(*args: str) -> None:
@@ -195,7 +209,8 @@ def _run_launcher(*args: str) -> None:
 
 
 def test_launcher_runs_on_cpu():
-    _run_launcher("--arch", "mamba2-780m")
+    for name in ("mamba2-780m", "zamba2-2.7b", "whisper-medium"):  # ssm, hybrid, encdec
+        _run_launcher("--arch", name)
 
 
 def test_launcher_runs_on_cpu_with_its_default_arch():
