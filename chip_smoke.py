@@ -23,6 +23,14 @@ with random weights from seed 0, and checks that each went through its kernel:
 - deepseek-moe-16b and internvl2-26b (4 of their layers) and whisper-medium
   (full depth) at full width: an f32 twin's prefill against prefill + decode,
   and one batch through ``ServeEngine`` each (no kernel launch);
+- training: mamba2-780m at full width and depth takes 5 AdamW steps of
+  ``train/step.py::make_train_fn`` on 4 x 1024 tokens (48 ``ssd_scan``
+  launches a step, each with its plain backward), after an f32 twin (one
+  step through the kernel against one through the plain scan) and a
+  checkpoint restart at 2 layers that must equal an uninterrupted run
+  bitwise; zamba2-2.7b at 6 of its 54 layers takes 2 steps through both
+  kernels (6 ``ssd_scan`` and 1 ``flash_attention`` launch a step, each with
+  its backward);
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -273,13 +281,14 @@ def phase_ssd_kernel() -> dict:
     }
 
 
-def profile(fn, top: int = 6, names: tuple[str, ...] = ()) -> dict:
+def profile(fn, top: int = 6, names: tuple[str, ...] = (), ops: tuple[str, ...] = ()) -> dict:
     """One call of fn under torch.profiler: host wall ms, the device's busy ms
     (the union of kernel intervals), its idle share, the kernels that took
     the most device time and, for each of ``names``, the device ms of the
-    kernels whose name holds it (as ``{name}_ms``).  The profiler slows the
-    host, so the idle share is an upper bound.  Device numbers are null where
-    the trace holds no kernel."""
+    kernels whose name holds it (as ``{name}_ms``); for each of ``ops``, the
+    device ms under each host op whose name holds it, children included (as
+    ``{op}_ops``).  The profiler slows the host, so the idle share is an upper
+    bound.  Device numbers are null where the trace holds no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -293,7 +302,7 @@ def profile(fn, top: int = 6, names: tuple[str, ...] = ()) -> dict:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         return {"wall_ms": wall_ms, "device_busy_ms": None, "idle_share": None, "kernels": 0, "top": [],
-                **{f"{n}_ms": None for n in names}}
+                **{f"{n}_ms": None for n in names}, **{f"{op}_ops": {} for op in ops}}
     busy, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         busy += max(0.0, stop - max(start, end))
@@ -306,6 +315,9 @@ def profile(fn, top: int = 6, names: tuple[str, ...] = ()) -> dict:
            "kernels": len(kernels), "top": [{"name": n, "ms": t} for n, t in ranked]}
     for name in names:
         out[f"{name}_ms"] = sum(t for n, t in by_name.items() if name in n)
+    for op in ops:
+        out[f"{op}_ops"] = {e.key: getattr(e, "device_time_total", 0.0) / 1e3
+                            for e in prof.key_averages() if op in e.key}
     return out
 
 
@@ -919,6 +931,7 @@ def serve_batches(cfg, params, prompt_lens=(1024, 1000), max_len: int = 2048) ->
     }
 
 
+@torch.inference_mode()
 def phase_serve_mamba2() -> tuple[dict, int]:
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.ssd_scan import ops
@@ -978,6 +991,7 @@ def check_dense_f32(cfg, params) -> dict:
     return {"logit_scale": scale, "err_flash_vs_plain": err, "err_prefill_vs_decode": err_dec}
 
 
+@torch.inference_mode()
 def phase_dense() -> tuple[dict, dict, int]:
     """qwen2.5-3b at full width: forward and loss_fn through the kernel, then serving."""
     from repro_torch.configs import ARCHS
@@ -1102,6 +1116,7 @@ def check_hybrid_f32(cfg, params) -> dict:
     return {"logit_scale": scale, **errs}
 
 
+@torch.inference_mode()
 def phase_hybrid() -> tuple[dict, dict, dict]:
     """zamba2-2.7b at full width and depth: forward and loss_fn through both
     kernels (54 ssd_scan and 9 flash_attention launches a call), then serving
@@ -1231,6 +1246,7 @@ def check_prefill_decode_f32(cfg, params) -> dict:
     return {"logit_scale": scale, "err_prefill_vs_decode": err, **changes}
 
 
+@torch.inference_mode()
 def phase_families() -> list[dict]:
     """The other families at full width, each cut in depth as FAMILIES says:
     an f32-twin prefill-vs-decode check and one ServeEngine batch of 4.
@@ -1267,6 +1283,270 @@ def phase_families() -> list[dict]:
             "nvidia_smi": smi(),
         })
     return lines
+
+
+TRAIN_OCFG = dict(lr=1e-3, warmup_steps=0)
+TRAIN_DATA = dict(seq_len=1024, global_batch=4, seed=0)  # 4 x 1024 tokens a step, one batch repeated
+TRAIN_STEPS = 5
+TRAIN_RESTART_LAYERS = 2  # of mamba2-780m's 48, for the checkpoint-restart check
+ZAMBA2_TRAIN_LAYERS = 6  # of zamba2-2.7b's 54: one shared-attention site
+
+
+def cuda_batch(cfg, step: int = 0, **data) -> dict:
+    """``host_batch`` of ``data`` (a DataConfig's fields) at ``step``, on the card."""
+    from repro_torch.data.pipeline import DataConfig, host_batch
+
+    batch = host_batch(cfg, DataConfig(**data), step)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda") for k, v in batch.items()}
+
+
+def kernel_counts() -> dict:
+    """Each kernel's launches and plain backwards since the counts were last set to 0."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    return {"ssd_scan": [ssd_ops.LAUNCHES, ssd_ops.BACKWARDS], "flash_attention": [fa_ops.LAUNCHES, fa_ops.BACKWARDS]}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    ssd_ops.LAUNCHES = ssd_ops.BACKWARDS = fa_ops.LAUNCHES = fa_ops.BACKWARDS = 0
+
+
+def train_steps(step_fn, params, opt, batches) -> list[dict]:
+    """One train step per batch, each timed by the host clock between two
+    synchronisations, with its metrics and the kernels' launches and backwards
+    (counts set to 0 just before the step, read just after)."""
+    rows = []
+    for batch in batches:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"ms": ms, **{k: v.item() for k, v in metrics.items()}, **kernel_counts()})
+    return rows
+
+
+def plain_backward_ms(sh) -> float:
+    """Device ms of one ``SSDScan`` backward at a bf16 path shape, by CUDA events:
+    the plain scan recomputed from the inputs and differentiated (what
+    ``ops.SSDScan.backward`` runs), the final state's gradient unused."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    ins = [t.requires_grad_() for t in ssd_inputs(sh["b"], sh["s"], sh["h"], sh["p"], sh["g"], sh["n"], 0, torch.bfloat16)]
+    gy = torch.randn((sh["b"], sh["s"], sh["h"], sh["p"]), device="cuda")
+
+    def backward():
+        y, _ = ssd_scan_ref(*ins, chunk=sh["L"])
+        torch.autograd.grad(y, ins, gy)
+
+    return cuda_ms(backward, iters=10)
+
+
+def check_train_f32(cfg) -> dict:
+    """Full-width model in float32: one train step on 2 x 512 tokens through the
+    kernel's forward, against the same step with the plain scan.  Loss within
+    1e-4 relative, grad norm within 1e-3, and each leaf's clipped gradient
+    within 1e-3 of its largest.  The updated params are held to 1e-3 lr after
+    AdamW's first step is accounted for: that step moves each element by
+    lr g / (|g| + eps) (plus weight decay, equal in both), so where g lies
+    within a few eps of zero a gradient difference of float noise moves the
+    element by up to 2 lr.  Each param difference must equal, within 1e-3 lr,
+    the one AdamW gives for the two gradients; the elements that differ by
+    more than 1e-3 lr are counted, with their largest clipped gradient."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_fn
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ocfg = adamw.AdamWConfig(**TRAIN_OCFG)
+    batch = cuda_batch(cfg32, seq_len=512, global_batch=2, seed=1)
+    update, kernel_scan, out = adamw.update, ops.ssd_scan, {}
+    for route in ("kernel", "plain"):
+        params = get_model(cfg32).init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        seen = {}
+
+        def spy(c, grads, state, p, seen=seen):
+            seen["grads"] = grads
+            return update(c, grads, state, p)
+
+        adamw.update = spy
+        if route == "plain":
+            ops.ssd_scan = lambda *a, chunk: ssd_scan_ref(*a, chunk=chunk)
+        try:
+            _, _, metrics = make_train_fn(cfg32, ocfg)(params, adamw.init(params), batch)
+        finally:
+            adamw.update, ops.ssd_scan = update, kernel_scan
+        metrics = {k: v.item() for k, v in metrics.items()}
+        clip = min(1.0, ocfg.grad_clip / (metrics["grad_norm"] + 1e-9))
+        out[route] = (params, metrics, {n: g * clip for n, g in seen["grads"].items()})
+    (pk, mk, gk), (pp, mp, gp) = out["kernel"], out["plain"]
+    bar = 1e-3 * ocfg.lr
+    stats = {"grad_rel": 0.0, "param_vs_adamw": 0.0, "beyond_bar": 0, "beyond_bar_max_clipped_gradient": 0.0}
+    for (name, a), b in zip(pk.named_parameters(), pp.parameters()):
+        ga, gb = gk[name], gp[name]
+        stats["grad_rel"] = max(stats["grad_rel"], ((ga - gb).abs().max() / gb.abs().max()).item())
+        moved = -ocfg.lr * (ga / (ga.abs() + ocfg.eps) - gb / (gb.abs() + ocfg.eps))
+        stats["param_vs_adamw"] = max(stats["param_vs_adamw"], ((a - b) - moved).abs().max().item())
+        beyond = (a - b).abs() > bar
+        if beyond.any():
+            stats["beyond_bar"] += int(beyond.sum())
+            stats["beyond_bar_max_clipped_gradient"] = max(stats["beyond_bar_max_clipped_gradient"],
+                                                          gb.abs()[beyond].max().item())
+    errs = {"loss_rel": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
+            "grad_norm_rel": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]}
+    if errs["loss_rel"] > 1e-4 or errs["grad_norm_rel"] > 1e-3 or stats["grad_rel"] > 1e-3 \
+            or stats["param_vs_adamw"] > bar:
+        fail(f"f32 train twin: {errs} {stats} (bars: loss 1e-4, grad norm and grads 1e-3, params {bar})")
+    return {"tokens": [2, 512], "loss": [mk["loss"], mp["loss"]], "grad_norm": [mk["grad_norm"], mp["grad_norm"]],
+            **errs, "param_bar": bar, **stats, "of_elements": sum(p.numel() for p in pk.parameters())}
+
+
+def check_train_restart(cfg) -> dict:
+    """Full width, depth cut to TRAIN_RESTART_LAYERS: two steps, a save with
+    CheckpointManager, the module and AdamW state rebuilt from ``restore``, a
+    third step; its params against an uninterrupted three-step run, bitwise."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_fn
+
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_RESTART_LAYERS)
+    step_fn = make_train_fn(cut, adamw.AdamWConfig(**TRAIN_OCFG))
+    batches = [cuda_batch(cut, step, **{**TRAIN_DATA, "seed": 2}) for step in range(3)]
+
+    def fresh():
+        return get_model(cut).init_params(cut, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    ref = fresh()
+    train_steps(step_fn, ref, adamw.init(ref), batches)
+    params = fresh()
+    opt = adamw.init(params)
+    train_steps(step_fn, params, opt, batches[:2])
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        mgr.save(2, {"params": dict(params.named_parameters()), "opt": opt})
+        save_s = time.perf_counter() - t0
+        stats = mgr.stats()
+        del params, opt
+        model = fresh()
+        restored, step = mgr.restore({"params": dict(model.named_parameters()), "opt": adamw.init(model)})
+    model.load_state_dict(restored["params"])
+    train_steps(step_fn, model, restored["opt"], batches[2:])
+    diffs = {n: (a - b).abs().max().item() for (n, a), b in zip(ref.named_parameters(), model.parameters())
+             if not torch.equal(a, b)}
+    if step != 2 or int(restored["opt"]["step"]) != 3 or diffs:
+        fail(f"train restart: step {step}, AdamW step {int(restored['opt']['step'])}, params differ {diffs}")
+    return {"layers": cut.num_layers, "reduced": {"num_layers": [cfg.num_layers, cut.num_layers]},
+            "params": sum(p.numel() for p in model.parameters()), "bitwise_equal": True,
+            "bytes_written": stats["device"]["bytes_written"], "write_amplification": stats["write_amplification"],
+            "save_s": save_s}
+
+
+def phase_train() -> tuple[dict, dict, dict]:
+    """mamba2-780m at full width and depth takes TRAIN_STEPS AdamW steps of
+    make_train_fn on one repeated batch of 4 x 1024 tokens, with ssd_scan's
+    kernel forward and the plain backward in every layer (48 launches and 48
+    backwards a step); the f32 twin and the checkpoint restart first.  Then
+    zamba2-2.7b, depth cut to ZAMBA2_TRAIN_LAYERS, takes two steps through both
+    kernels' Functions (6 ssd_scan and 1 flash_attention a step, each with its
+    backward)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_fn
+
+    cfg = ARCHS["mamba2-780m"]
+    twin = check_train_f32(cfg)
+    restart = check_train_restart(cfg)
+
+    params = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = adamw.init(params)
+    step_fn = make_train_fn(cfg, adamw.AdamWConfig(**TRAIN_OCFG))
+    batch = cuda_batch(cfg, **TRAIN_DATA)
+    torch.cuda.reset_peak_memory_stats()
+    steps = train_steps(step_fn, params, opt, [batch] * TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"ssd_scan": [cfg.num_layers] * 2, "flash_attention": [0, 0]}
+    for i, row in enumerate(steps):
+        if not all(np.isfinite(row[k]) for k in ("loss", "grad_norm", "lr")):
+            fail(f"mamba2 train step {i + 1}: {row}")
+        if {k: row[k] for k in want} != want:
+            fail(f"mamba2 train step {i + 1}: launches and backwards {row}, expected {want}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        fail(f"mamba2 train: loss did not fall, {[r['loss'] for r in steps]}")
+    warm_ms = [r["ms"] for r in steps[1:]]
+    ms = sum(warm_ms) / len(warm_ms)
+    tokens = TRAIN_DATA["seq_len"] * TRAIN_DATA["global_batch"]
+    # where a step's time goes, outside the counted run
+    prof = profile(lambda: step_fn(params, opt, batch), top=10, names=("ssd_", *SSD_STAGES),
+                   ops=("SSDScanBackward",))
+    if not prof["ssd__ms"]:
+        fail(f"the profiled mamba2 train step shows no ssd_scan kernel on the device: {prof}")
+    profiled_bwd = prof["SSDScanBackward_ops"].get("SSDScanBackward")
+    bwd_ms = plain_backward_ms(SERVE_SHAPE)
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, opt, step_fn
+    card = smi()
+    mamba2 = {
+        "phase": "train",
+        "arch": cfg.name,
+        "params": n_params,
+        "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]],
+        "optimizer": {**TRAIN_OCFG, "other": "AdamWConfig defaults"},
+        "steps": steps,
+        "ms_per_step_warm": ms,
+        "tokens_per_s": tokens / (ms / 1e3),
+        "max_memory_allocated": peak,
+        "profile": prof,
+        # the plain backward: device ms under the 48 SSDScanBackward nodes of the profiled
+        # step, and one backward alone at the path shape by CUDA events
+        "plain_backward": {"profiled_ms_per_step": profiled_bwd,
+                           "profiled_share_of_device_busy": profiled_bwd / prof["device_busy_ms"]
+                           if profiled_bwd and prof["device_busy_ms"] else None,
+                           "profiled_share_of_step_ms": profiled_bwd / ms if profiled_bwd else None,
+                           "alone_ms_per_call": bwd_ms, "calls_per_step": cfg.num_layers,
+                           "alone_share_of_step_ms": bwd_ms * cfg.num_layers / ms},
+        "model_check_f32": twin,
+        "restart": restart,
+        "nvidia_smi": card,
+    }
+
+    full = ARCHS["zamba2-2.7b"]
+    zcfg = dataclasses.replace(full, num_layers=ZAMBA2_TRAIN_LAYERS, attention_impl="flash")
+    zparams = get_model(zcfg).init_params(zcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    zopt, zbatch = adamw.init(zparams), cuda_batch(zcfg, **TRAIN_DATA)
+    zstep_fn = make_train_fn(zcfg, adamw.AdamWConfig(**TRAIN_OCFG))
+    zsteps = train_steps(zstep_fn, zparams, zopt, [zbatch] * 2)
+    zwant = {"ssd_scan": [zcfg.num_layers] * 2, "flash_attention": [zcfg.num_layers // zcfg.attn_every] * 2}
+    for i, row in enumerate(zsteps):
+        if not all(np.isfinite(row[k]) for k in ("loss", "grad_norm", "lr")) or {k: row[k] for k in zwant} != zwant:
+            fail(f"zamba2 train step {i + 1}: {row}, expected launches and backwards {zwant}")
+    zamba2 = {
+        "phase": "train",
+        "arch": full.name,
+        "layers": zcfg.num_layers,
+        "reduced": {"num_layers": [full.num_layers, zcfg.num_layers]},
+        "attention_impl": zcfg.attention_impl,
+        "params": sum(p.numel() for p in zparams.parameters()),
+        "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]],
+        "steps": zsteps,
+        # outside the counted run: the device ms under each kernel's plain backward
+        "profile": profile(lambda: zstep_fn(zparams, zopt, zbatch), top=8, names=("ssd_", "flash_attention"),
+                           ops=("SSDScanBackward", "FlashAttentionBackward")),
+        "nvidia_smi": smi(),
+    }
+    del zparams, zopt
+    counts = {"mamba2_train": {k: [sum(r[k][i] for r in steps) for i in (0, 1)] for k in want},
+              "zamba2_train": {k: [sum(r[k][i] for r in zsteps) for i in (0, 1)] for k in zwant}}
+    return mamba2, zamba2, counts
 
 
 def main() -> None:
@@ -1315,11 +1595,19 @@ def main() -> None:
     emit(serve_hybrid)
     for line in phase_families():
         emit(line)
+    train, train_zamba2, train_launches = phase_train()
+    emit(train)
+    emit(train_zamba2)
     # each kernel's launches in the counted runs of the main paths, by path
     ssd_row["launches_by_path"] = {"mamba2_serve": mamba2_launches,
-                                   **{k: v["ssd_scan"] for k, v in hybrid_launches.items()}}
+                                   **{k: v["ssd_scan"] for k, v in hybrid_launches.items()},
+                                   **{k: v["ssd_scan"][0] for k, v in train_launches.items()}}
     fa_row["launches_by_path"] = {"qwen2.5-3b_forward": dense_launches,
-                                  **{k: v["flash_attention"] for k, v in hybrid_launches.items()}}
+                                  **{k: v["flash_attention"] for k, v in hybrid_launches.items()},
+                                  **{k: v["flash_attention"][0] for k, v in train_launches.items()}}
+    for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row)):  # the plain recomputes in training
+        row["backwards_by_path"] = {k: v[name][1] for k, v in train_launches.items()}
+    ssd_row["train_plain_backward"] = train["plain_backward"]
     for row in (ssd_row, fa_row):
         row["launches"] = sum(row["launches_by_path"].values())
     fa_row["zamba2_forward_device_share"] = hybrid["device_share"]["flash_attention"]

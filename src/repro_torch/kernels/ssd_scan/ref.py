@@ -38,8 +38,11 @@ def ssd_scan_ref(
     spad = x.shape[1]
     nc = spad // L
     rep = h // g
-    bh = bmat.repeat_interleave(rep, dim=2)  # (B,S,H,N): head h reads group h // rep
-    ch = cmat.repeat_interleave(rep, dim=2)
+    # (B,S,H,N): head h reads group h // rep.  Expanded, not repeat_interleave'd:
+    # the backward then sums over the heads by a reduction, not by atomic adds,
+    # so the recomputed gradient on the card is the same bits every run
+    bh = bmat[:, :, :, None, :].expand(b, spad, g, rep, n).reshape(b, spad, h, n)
+    ch = cmat[:, :, :, None, :].expand(b, spad, g, rep, n).reshape(b, spad, h, n)
 
     f32 = torch.float32
     dtf = dt.to(f32)

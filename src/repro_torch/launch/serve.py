@@ -19,6 +19,7 @@ from repro_torch.models.layers import _device
 from repro_torch.serve.engine import Request, ServeEngine
 
 
+@torch.inference_mode()
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b", choices=sorted(ARCHS))

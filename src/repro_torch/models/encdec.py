@@ -158,7 +158,6 @@ def _prefix(cfg: ArchConfig, params: EncDec, batch: dict[str, Any], cache: dict[
     return x
 
 
-@torch.inference_mode()
 def forward(cfg: ArchConfig, params: EncDec, batch: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
     """batch: ``tokens`` (B, S) and ``frame_embeds`` (B, F, D) -> (logits (B, S, V), zero aux)."""
     _check(cfg, params)
@@ -166,7 +165,6 @@ def forward(cfg: ArchConfig, params: EncDec, batch: dict[str, Any]) -> tuple[tor
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-@torch.inference_mode()
 def loss_fn(cfg: ArchConfig, params: EncDec, batch: dict[str, Any]) -> torch.Tensor:
     """Next-token cross entropy in float32.  Labels < 0 are ignored."""
     logits, _ = forward(cfg, params, batch)

@@ -32,7 +32,7 @@ def _device(device=None) -> torch.device:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)  # inference only
+    return nn.Parameter(t)
 
 
 def _normal(shape, scale: float, dtype, generator, device) -> nn.Parameter:
@@ -126,8 +126,9 @@ class Attention(nn.Module):
         if cfg.orig_num_heads and cfg.orig_num_heads < h:
             # TP head padding: padded q heads are exact zeros (contribute nothing)
             mask = (torch.arange(h, device=device) < cfg.orig_num_heads).to(dt)
-            self.wq.mul_(mask[None, :, None])
-            self.wo.mul_(mask[:, None, None])
+            with torch.no_grad():
+                self.wq.mul_(mask[None, :, None])
+                self.wo.mul_(mask[:, None, None])
         if cfg.qkv_bias:
             self.bq = _param(torch.zeros((h, hd), dtype=dt, device=device))
             self.bk = _param(torch.zeros((k, hd), dtype=dt, device=device))

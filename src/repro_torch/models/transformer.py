@@ -3,7 +3,10 @@
 ``init_params`` returns an ``nn.Module`` (``LM``) whose layers sit in an
 ``nn.ModuleList``; the functions take it where the reference takes its param
 tree, and the reference's ``lax.scan`` over stacked layers becomes a loop
-(its ``lax.cond`` an ``if``).  ``remat`` is ignored: this is inference.  The
+(its ``lax.cond`` an ``if``).  ``forward`` and ``loss_fn`` follow the
+caller's grad mode, as the reference's functions may be differentiated;
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
+``remat`` is ignored: the backward keeps every activation.  The
 hybrid (zamba2-style) family runs Mamba2 layers and applies ONE
 weight-shared attention block (``shared_block``) after every
 ``attn_every``-th layer; each application site has its own K/V cache (weights
@@ -149,7 +152,6 @@ def _embed_inputs(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.T
     return x
 
 
-@torch.inference_mode()
 def forward(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits over token positions, aux_loss).
 
@@ -186,7 +188,6 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
-@torch.inference_mode()
 def loss_fn(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.Tensor:
     """Next-token cross entropy (+ MoE aux), in float32.  Labels < 0 are ignored."""
     logits, aux = forward(cfg, params, batch)

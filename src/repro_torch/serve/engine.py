@@ -46,6 +46,7 @@ class ServeEngine:
     def _decode(self, params, cache, tok):
         return self.model.decode_step(self.cfg, params, cache, tok)
 
+    @torch.inference_mode()
     def run_batch(self, requests: list[Request]) -> list[Request]:
         """Prefill a uniform batch then greedy-decode to completion.
 

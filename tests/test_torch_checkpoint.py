@@ -1,7 +1,8 @@
 """The port's ``LogStructuredCheckpointer`` (``repro_torch.checkpoint.store``)
-against the reference's: the cases of ``tests/test_checkpoint.py`` that need
-no JAX run on the port, the same saves leave byte-identical directories in
-both packages, and a checkpoint written by either restores bitwise in the other."""
+and ``CheckpointManager`` (``repro_torch.checkpoint.manager``) against the
+reference's: the cases of ``tests/test_checkpoint.py`` run on the port, the
+same saves leave byte-identical directories in both packages, and a
+checkpoint written by either restores bitwise in the other."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,10 +10,15 @@ import os
 import re
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from repro.checkpoint.manager import CheckpointManager as RefManager
 from repro.checkpoint.store import LogStructuredCheckpointer as RefCheckpointer
+from repro_torch.checkpoint.manager import CheckpointManager, _assemble
 from repro_torch.checkpoint.store import LogStructuredCheckpointer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -154,3 +160,101 @@ def test_directories_byte_identical_and_cross_restore(tmp_path, mode, gc_thresho
         out, step = PACKAGES[reader](str(tmp_path / writer), mode=mode).restore()
         assert step == 7
         assert_bitwise_equal(out, state)
+
+
+# ------------------------------------------------------------- the manager
+def test_manager_with_torch_tree(tmp_path):
+    """tests/test_checkpoint.py::test_manager_with_jax_pytree, on tensors."""
+    mgr = CheckpointManager(str(tmp_path), consolidate_every=4)
+    params = {
+        "layer": {"w": torch.arange(128, dtype=torch.float32).reshape(8, 16), "b": torch.ones((16,))},
+        "step_count": torch.zeros((), dtype=torch.int32),
+    }
+    mgr.save(3, params)
+    like = {"layer": {"w": torch.empty((8, 16), device="meta"), "b": torch.empty((16,), device="meta")},
+            "step_count": torch.empty((), dtype=torch.int32, device="meta")}
+    restored, step = mgr.restore(like, device="cpu")
+    assert step == 3
+    for key in ("w", "b"):
+        assert torch.equal(restored["layer"][key], params["layer"][key])
+    assert restored["step_count"].dtype == torch.int32 and restored["step_count"].shape == ()
+    stats = mgr.stats()
+    assert stats["write_amplification"] >= 1.0
+
+
+def test_assemble_refuses_partial_coverage():
+    """Regression: a missing shard part must raise, never restore zeros."""
+    half = np.ones((4, 8), np.float32)
+    with pytest.raises(RuntimeError, match="uncovered"):
+        _assemble({"0-4_0-8": half}, (8, 8), np.float32)
+    # the same parts with full coverage assemble fine
+    got = _assemble({"0-4_0-8": half, "4-8_0-8": 2 * half}, (8, 8), np.float32)
+    np.testing.assert_array_equal(got, np.vstack([half, 2 * half]))
+
+
+def _train_like_tree(step):
+    """A trainer's tree: params and AdamW state (int32 0-d step), a 0-d float leaf and a numpy leaf."""
+    r = np.random.default_rng(step)
+    params = {"embed": r.standard_normal((300, 64)), "layers.0.w": r.standard_normal((64, 32)),
+              "layers.0.scale": r.standard_normal(32), "bias": r.standard_normal(5)}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    return {
+        "params": params,
+        "opt": {"mu": {k: 0.1 * v for k, v in params.items()}, "nu": {k: v * v for k, v in params.items()},
+                "step": np.int32(step)},
+        "loss_scale": np.float32(step + 0.5),
+        "host_rows": np.arange(6, dtype=np.int64),  # a numpy leaf: keyed "full" in both packages
+    }
+
+
+def _as(tree, tensor, numpy_keys=("host_rows",)):
+    return {k: _as(v, tensor, ()) if isinstance(v, dict) else (np.asarray(v) if k in numpy_keys else tensor(v))
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "inline", "log"])
+def test_manager_directories_byte_identical_and_cross_restore(tmp_path, mode):
+    mgrs = {"ref": RefManager(str(tmp_path / "ref"), mode=mode, consolidate_every=2),
+            "port": CheckpointManager(str(tmp_path / "port"), mode=mode, consolidate_every=2)}
+    to_ref = lambda t: _as(t, lambda a: jnp.asarray(a))  # noqa: E731
+    to_port = lambda t: _as(t, lambda a: torch.from_numpy(np.array(a)))  # noqa: E731
+    for step in range(3):
+        tree = _train_like_tree(step)
+        mgrs["ref"].save(step, to_ref(tree))
+        mgrs["port"].save(step, to_port(tree))
+    files = {k: sorted(p.relative_to(tmp_path / k) for p in (tmp_path / k).rglob("*") if p.is_file()) for k in mgrs}
+    assert files["port"] == files["ref"] and any(p.name == "MANIFEST" for p in files["ref"])
+    for rel in files["ref"]:
+        assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "ref" / rel).read_bytes(), rel
+    manifest = next(p for p in files["ref"] if p.name == "MANIFEST")
+    text = (tmp_path / "ref" / manifest).read_text()
+    assert "opt/step@scalar" in text and "params/embed@0-end_0-end" in text and "host_rows@full" in text
+
+    want = tree
+    # the port restores the reference's directory, and the reference the port's, bitwise
+    restored, step = CheckpointManager(str(tmp_path / "ref"), mode=mode).restore(to_port(want), device="cpu")
+    assert step == 2
+    jrestored, jstep = RefManager(str(tmp_path / "port"), mode=mode).restore(
+        jax.tree.map(lambda a: jax.ShapeDtypeStruct(np.shape(a), np.asarray(a).dtype), to_ref(want)))
+    assert jstep == 2
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    for path, leaf in flat:
+        keys = [p.key for p in path]
+        got, jgot = restored, jrestored
+        for k in keys:
+            got, jgot = got[k], jgot[k]
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        for arr in (got.numpy(), np.asarray(jgot)):
+            assert arr.dtype == np.asarray(leaf).dtype and arr.shape == np.shape(leaf), keys
+            assert arr.tobytes() == np.asarray(leaf).tobytes(), keys
+
+
+def test_manager_refuses_bfloat16_and_restores_to_like_device(tmp_path):
+    mgr = CheckpointManager(str(tmp_path))
+    with pytest.raises(TypeError, match="bfloat16"):
+        mgr.save(0, {"w": torch.ones(4, dtype=torch.bfloat16)})
+    mgr.save(1, {"w": torch.arange(4.0)})
+    restored, _ = mgr.restore({"w": torch.zeros(4)})  # a real tensor: restored on its device
+    assert restored["w"].device.type == "cpu" and torch.equal(restored["w"], torch.arange(4.0))
+    with pytest.raises(KeyError, match="missing v"):
+        mgr.restore({"v": torch.zeros(4)})

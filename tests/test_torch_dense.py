@@ -64,7 +64,7 @@ def test_loss_fn_matches(pair, impl):
     labels = np.concatenate([tokens[:, 1:], np.full((2, 1), -1, np.int32)], axis=1)
     loss = get_model(cfg).loss_fn(cfg, params, {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)})
     jloss = jax_get_model(jcfg).loss_fn(jcfg, jparams, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
-    assert loss.shape == () and np.isfinite(float(loss))
+    assert loss.shape == () and np.isfinite(float(loss.detach()))
     _close(loss, jloss)
 
 

@@ -36,9 +36,9 @@ def test_tree_maps_encoder_and_decoder_stacks(pair):
     cfg, params, _, jparams = pair
     assert len(params.enc_layers) == cfg.encoder_layers and len(params.dec_layers) == cfg.num_layers
     assert params.dec_pos.shape == (encdec.MAX_DECODER_POS, cfg.d_model) == tuple(jparams["dec_pos"].shape)
-    np.testing.assert_array_equal(params.dec_layers[1].cross_attn.wk.numpy(),
+    np.testing.assert_array_equal(params.dec_layers[1].cross_attn.wk.detach().numpy(),
                                   np.asarray(jparams["dec_layers"]["cross_attn"]["wk"][1]))
-    np.testing.assert_array_equal(params.enc_layers[0].mlp.bi.numpy(), np.asarray(jparams["enc_layers"]["mlp"]["bi"][0]))
+    np.testing.assert_array_equal(params.enc_layers[0].mlp.bi.detach().numpy(), np.asarray(jparams["enc_layers"]["mlp"]["bi"][0]))
     for t in (params.enc_layers[0].ln1.bias, params.dec_layers[0].mlp.bo, params.dec_norm.scale):
         assert not (torch.all(t == 0) or torch.all(t == 1))  # the perturbation reached them
 
@@ -83,7 +83,7 @@ def test_layernorm_matches():
     with torch.no_grad():
         p.scale.copy_(torch.from_numpy(_x(48, 1)))
         p.bias.copy_(torch.from_numpy(_x(48, 2)))
-    jp = {"scale": jnp.asarray(p.scale.numpy()), "bias": jnp.asarray(p.bias.numpy())}
+    jp = {"scale": jnp.asarray(p.scale.detach().numpy()), "bias": jnp.asarray(p.bias.detach().numpy())}
     close(layers.layernorm(p, torch.from_numpy(x), 1e-5), jax_layers.layernorm(jp, jnp.asarray(x), 1e-5))
 
 
@@ -93,7 +93,7 @@ def test_gelu_mlp_uses_the_tanh_gelu_of_the_reference():
     with torch.no_grad():
         p.bi.copy_(torch.from_numpy(_x(40, 3)))
         p.bo.copy_(torch.from_numpy(_x(16, 4)))
-    jp = {k: jnp.asarray(getattr(p, k).numpy()) for k in ("wi", "bi", "wo", "bo")}
+    jp = {k: jnp.asarray(getattr(p, k).detach().numpy()) for k in ("wi", "bi", "wo", "bo")}
     x = _x((2, 7, 16), 5) * 2
     out = layers.gelu_mlp(p, torch.from_numpy(x), "float32")
     close(out, jax_layers.gelu_mlp(jp, jnp.asarray(x), "float32"))
@@ -114,7 +114,7 @@ def test_sinusoid_positions_match(length, dim):
 def test_cross_attention_matches(pair):
     cfg, params, jcfg, jparams = pair
     p = params.dec_layers[0].cross_attn
-    jp = {k: jnp.asarray(getattr(p, k).numpy()) for k in ("wq", "wk", "wv", "wo")}
+    jp = {k: jnp.asarray(getattr(p, k).detach().numpy()) for k in ("wq", "wk", "wv", "wo")}
     x = _x((2, 9, cfg.d_model), 6)
     k = _x((2, cfg.encoder_frames, cfg.num_kv_heads, cfg.resolved_head_dim), 7)
     v = _x((2, cfg.encoder_frames, cfg.num_kv_heads, cfg.resolved_head_dim), 8)

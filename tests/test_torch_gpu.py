@@ -100,6 +100,35 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
         kernel.ssd_scan_cuda(x.cpu(), dt, a, bm, cm, chunk=16)
 
 
+def _grads(fn, ins, weights):
+    """Gradients of sum(out.float() * w) over the outputs, in x's dtype as the kernel writes y."""
+    leaves = [t.detach().requires_grad_() for t in ins]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.grad_fn is not None for o in outs)  # the kernel's outputs carry the graph on the card
+    loss = sum((o.to(ins[0].dtype).float() * w).sum() for o, w in zip(outs, weights))
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,L", [(4, 1024, 48, 64, 1, 128, 256), (4, 1024, 80, 64, 1, 64, 256)],
+                         ids=["mamba2-780m", "zamba2-2.7b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_kernel_forward_plain_backward(cuda, b, s, h, p, g, n, L, dtype):
+    """ops.ssd_scan on the card (kernel forward, plain backward) against autograd of
+    the plain version, at the train path's shapes; bars are the forward's own (y's)."""
+    args = _inputs(b, s, h, p, g, n, 11, dtype, cuda)
+    r = torch.Generator(device=cuda).manual_seed(0)
+    weights = [torch.randn((b, s, h, p), generator=r, device=cuda), torch.randn((b, h, p, n), generator=r, device=cuda)]
+    launches, backwards = ops.LAUNCHES, ops.BACKWARDS
+    got = _grads(lambda *t: ops.ssd_scan(*t, chunk=L), args, weights)
+    assert (ops.LAUNCHES, ops.BACKWARDS) == (launches + 1, backwards + 1)
+    ref = _grads(lambda *t: ssd_scan_ref(*t, chunk=L), args, weights)
+    tol = TOL[dtype][0]
+    for name, a, b_ in zip(("x", "dt", "a", "B", "C"), got, ref):
+        assert a.dtype == b_.dtype, name
+        torch.testing.assert_close(a.float(), b_.float(), atol=tol, rtol=tol, msg=name)
+
+
 # ------------------------------------------------------------ flash attention
 # The reference's kernel-test bars (tests/test_kernels.py): abs and rel.
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -174,6 +203,22 @@ def test_flash_kernel_is_causal(cuda):
     out2 = fa_kernel.flash_attention_cuda(q, k2, v2)
     torch.cuda.synchronize()
     torch.testing.assert_close(out1[:, :100], out2[:, :100], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,h,kh,d", [(4, 1024, 16, 2, 128), (4, 1024, 32, 32, 80)],
+                         ids=["qwen2.5-3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_kernel_forward_plain_backward(cuda, b, s, h, kh, d, dtype):
+    """fa_ops.flash_attention on the card (kernel forward, plain backward) against
+    autograd of the plain version; bars are the forward's own."""
+    args = _fa_inputs(b, s, h, kh, d, 12, dtype, cuda)
+    w = [torch.randn((b, s, h, d), generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)]
+    launches, backwards = fa_ops.LAUNCHES, fa_ops.BACKWARDS
+    got = _grads(lambda *t: fa_ops.flash_attention(*t), args, w)
+    assert (fa_ops.LAUNCHES, fa_ops.BACKWARDS) == (launches + 1, backwards + 1)
+    ref = _grads(lambda *t: flash_attention_ref(*t), args, w)
+    for name, a, b_ in zip("qkv", got, ref):
+        torch.testing.assert_close(a.float(), b_.float(), atol=FA_TOL[dtype], rtol=FA_TOL[dtype], msg=name)
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):

@@ -37,7 +37,7 @@ def _prompts(batch, s, vocab, seed=0):
 
 
 def _close(port, ref):
-    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("s", [40, 48])  # 40 is padded to the 16-token chunk

@@ -194,7 +194,7 @@ def test_every_arch_builds_and_runs_forward_on_cpu(name):
         batch["frame_embeds"] = torch.randn((2, cfg.encoder_frames, cfg.d_model), generator=g)
     logits, aux = m.forward(cfg, params, batch)
     assert logits.shape == (2, 12, cfg.vocab_padded) and torch.isfinite(logits).all()
-    assert aux.shape == () and torch.isfinite(aux) and (float(aux) > 0) == (cfg.family == "moe")
+    assert aux.shape == () and torch.isfinite(aux) and (float(aux.detach()) > 0) == (cfg.family == "moe")
 
 
 def _run_launcher(*args: str) -> None:

@@ -54,7 +54,7 @@ def tokens(batch, s, vocab, seed=0):
 
 
 def close(port, ref):
-    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
 
 
 def close_tree(port, ref):
@@ -103,7 +103,7 @@ def check_loss(pair, impl, s=33, seed=3):
     batch["labels"], jbatch["labels"] = torch.from_numpy(labels), jnp.asarray(labels)
     loss = get_model(cfg).loss_fn(cfg, params, batch)
     jloss = jax_get_model(jcfg).loss_fn(jcfg, jparams, jbatch)
-    assert loss.shape == () and np.isfinite(float(loss))
+    assert loss.shape == () and np.isfinite(float(loss.detach()))
     close(loss, jloss)
 
 
