@@ -24,13 +24,22 @@ with random weights from seed 0, and checks that each went through its kernel:
   (full depth) at full width: an f32 twin's prefill against prefill + decode,
   and one batch through ``ServeEngine`` each (no kernel launch);
 - training: mamba2-780m at full width and depth takes 5 AdamW steps of
-  ``train/step.py::make_train_fn`` on 4 x 1024 tokens (48 ``ssd_scan``
-  launches a step, each with its plain backward), after an f32 twin (one
-  step through the kernel against one through the plain scan) and a
-  checkpoint restart at 2 layers that must equal an uninterrupted run
-  bitwise; zamba2-2.7b at 6 of its 54 layers takes 2 steps through both
-  kernels (6 ``ssd_scan`` and 1 ``flash_attention`` launch a step, each with
-  its backward);
+  ``train/step.py::make_train_fn`` on 4 x 1024 tokens with ``remat`` on, as
+  the registry sets it (96 ``ssd_scan`` launches a step, the forward and its
+  recompute, and 48 plain backwards), then 5 with ``remat`` off (48 and 48)
+  for their peak memory and time, after an f32 twin (one step through the
+  kernel against one through the plain scan), a checkpoint restart at 2
+  layers that must equal an uninterrupted run bitwise, and one
+  ``make_train_step`` on the card's (1, 1) mesh at 2 layers, params and
+  AdamW state as DTensors, bitwise equal to ``make_train_fn``'s; zamba2-2.7b
+  at 6 of its 54 layers takes 2 steps through both kernels (12 ``ssd_scan``
+  launches and 6 backwards, 2 ``flash_attention`` launches and 1 backward a
+  step);
+- the training launcher, ``python -m repro_torch.launch.train``, as a
+  subprocess: mamba2-780m at full width and depth for 6 steps of 4 x 1024
+  tokens (96 + 48 a step, counted by the launcher's ``--metrics-json``), then
+  the reduced config killed at its first checkpoint and resumed with
+  ``--resume``, ending bitwise where an uninterrupted run ends;
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -57,6 +66,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1450,38 +1460,65 @@ def check_train_restart(cfg) -> dict:
             "save_s": save_s}
 
 
+def remat_launches(cfg, calls: int) -> list[int]:
+    """[kernel launches, plain backwards] of a train step for a kernel called ``calls``
+    times a forward: under ``cfg.remat`` each layer's forward runs again in the
+    backward, so the kernel launches twice for each backward."""
+    return [calls * (2 if cfg.remat else 1), calls]
+
+
+def mamba2_steps(cfg, n: int) -> tuple[list[dict], int, tuple]:
+    """``n`` AdamW steps of make_train_fn on one repeated batch at TRAIN_DATA, from
+    seed 0; returns the step rows, the peak memory of the steps, and (step_fn,
+    params, opt, batch).  Each step must be finite and launch what
+    ``remat_launches`` says, and the loss must fall."""
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_fn
+
+    params = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = adamw.init(params)
+    step_fn = make_train_fn(cfg, adamw.AdamWConfig(**TRAIN_OCFG))
+    batch = cuda_batch(cfg, **TRAIN_DATA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = train_steps(step_fn, params, opt, [batch] * n)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"ssd_scan": remat_launches(cfg, cfg.num_layers), "flash_attention": [0, 0]}
+    for i, row in enumerate(steps):
+        if not all(np.isfinite(row[k]) for k in ("loss", "grad_norm", "lr")):
+            fail(f"mamba2 train step {i + 1} (remat={cfg.remat}): {row}")
+        if {k: row[k] for k in want} != want:
+            fail(f"mamba2 train step {i + 1} (remat={cfg.remat}): launches and backwards {row}, expected {want}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        fail(f"mamba2 train (remat={cfg.remat}): loss did not fall, {[r['loss'] for r in steps]}")
+    return steps, peak, (step_fn, params, opt, batch)
+
+
 def phase_train() -> tuple[dict, dict, dict]:
     """mamba2-780m at full width and depth takes TRAIN_STEPS AdamW steps of
-    make_train_fn on one repeated batch of 4 x 1024 tokens, with ssd_scan's
-    kernel forward and the plain backward in every layer (48 launches and 48
-    backwards a step); the f32 twin and the checkpoint restart first.  Then
-    zamba2-2.7b, depth cut to ZAMBA2_TRAIN_LAYERS, takes two steps through both
-    kernels' Functions (6 ssd_scan and 1 flash_attention a step, each with its
-    backward)."""
+    make_train_fn on one repeated batch of 4 x 1024 tokens, with ``remat`` as the
+    registry sets it (on): ssd_scan's kernel forward runs in every layer and
+    again in its recompute, with the plain backward (96 launches and 48
+    backwards a step); the f32 twin and the checkpoint restart first, and the
+    same steps with ``remat`` off after (48 and 48), for their peak memory and
+    time.  Then zamba2-2.7b, depth cut to ZAMBA2_TRAIN_LAYERS, takes two steps
+    through both kernels' Functions (12 ssd_scan launches and 6 backwards, 2
+    flash_attention launches and 1 backward a step)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import get_model
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_fn
 
     cfg = ARCHS["mamba2-780m"]
+    if not cfg.remat:
+        fail("mamba2-780m's registry config no longer sets remat")
     twin = check_train_f32(cfg)
     restart = check_train_restart(cfg)
+    sharded = check_train_step_sharded(cfg)
 
-    params = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    opt = adamw.init(params)
-    step_fn = make_train_fn(cfg, adamw.AdamWConfig(**TRAIN_OCFG))
-    batch = cuda_batch(cfg, **TRAIN_DATA)
-    torch.cuda.reset_peak_memory_stats()
-    steps = train_steps(step_fn, params, opt, [batch] * TRAIN_STEPS)
-    peak = torch.cuda.max_memory_allocated()
-    want = {"ssd_scan": [cfg.num_layers] * 2, "flash_attention": [0, 0]}
-    for i, row in enumerate(steps):
-        if not all(np.isfinite(row[k]) for k in ("loss", "grad_norm", "lr")):
-            fail(f"mamba2 train step {i + 1}: {row}")
-        if {k: row[k] for k in want} != want:
-            fail(f"mamba2 train step {i + 1}: launches and backwards {row}, expected {want}")
-    if not steps[-1]["loss"] < steps[0]["loss"]:
-        fail(f"mamba2 train: loss did not fall, {[r['loss'] for r in steps]}")
+    steps, peak, (step_fn, params, opt, batch) = mamba2_steps(cfg, TRAIN_STEPS)
+    want = {"ssd_scan": remat_launches(cfg, cfg.num_layers), "flash_attention": [0, 0]}
     warm_ms = [r["ms"] for r in steps[1:]]
     ms = sum(warm_ms) / len(warm_ms)
     tokens = TRAIN_DATA["seq_len"] * TRAIN_DATA["global_batch"]
@@ -1494,6 +1531,10 @@ def phase_train() -> tuple[dict, dict, dict]:
     bwd_ms = plain_backward_ms(SERVE_SHAPE)
     n_params = sum(p.numel() for p in params.parameters())
     del params, opt, step_fn
+    no_remat = dataclasses.replace(cfg, remat=False)
+    steps_nr, peak_nr, held = mamba2_steps(no_remat, TRAIN_STEPS)
+    del held
+    ms_nr = sum(r["ms"] for r in steps_nr[1:]) / (len(steps_nr) - 1)
     card = smi()
     mamba2 = {
         "phase": "train",
@@ -1502,9 +1543,13 @@ def phase_train() -> tuple[dict, dict, dict]:
         "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]],
         "optimizer": {**TRAIN_OCFG, "other": "AdamWConfig defaults"},
         "steps": steps,
+        "remat": cfg.remat,
         "ms_per_step_warm": ms,
         "tokens_per_s": tokens / (ms / 1e3),
         "max_memory_allocated": peak,
+        # the same steps with remat off, in this run
+        "remat_off": {"steps": steps_nr, "ms_per_step_warm": ms_nr, "tokens_per_s": tokens / (ms_nr / 1e3),
+                      "max_memory_allocated": peak_nr},
         "profile": prof,
         # the plain backward: device ms under the 48 SSDScanBackward nodes of the profiled
         # step, and one backward alone at the path shape by CUDA events
@@ -1516,6 +1561,7 @@ def phase_train() -> tuple[dict, dict, dict]:
                            "alone_share_of_step_ms": bwd_ms * cfg.num_layers / ms},
         "model_check_f32": twin,
         "restart": restart,
+        "train_step_sharded": sharded,
         "nvidia_smi": card,
     }
 
@@ -1525,7 +1571,8 @@ def phase_train() -> tuple[dict, dict, dict]:
     zopt, zbatch = adamw.init(zparams), cuda_batch(zcfg, **TRAIN_DATA)
     zstep_fn = make_train_fn(zcfg, adamw.AdamWConfig(**TRAIN_OCFG))
     zsteps = train_steps(zstep_fn, zparams, zopt, [zbatch] * 2)
-    zwant = {"ssd_scan": [zcfg.num_layers] * 2, "flash_attention": [zcfg.num_layers // zcfg.attn_every] * 2}
+    zwant = {"ssd_scan": remat_launches(zcfg, zcfg.num_layers),
+             "flash_attention": remat_launches(zcfg, zcfg.num_layers // zcfg.attn_every)}
     for i, row in enumerate(zsteps):
         if not all(np.isfinite(row[k]) for k in ("loss", "grad_norm", "lr")) or {k: row[k] for k in zwant} != zwant:
             fail(f"zamba2 train step {i + 1}: {row}, expected launches and backwards {zwant}")
@@ -1547,6 +1594,158 @@ def phase_train() -> tuple[dict, dict, dict]:
     counts = {"mamba2_train": {k: [sum(r[k][i] for r in steps) for i in (0, 1)] for k in want},
               "zamba2_train": {k: [sum(r[k][i] for r in zsteps) for i in (0, 1)] for k in zwant}}
     return mamba2, zamba2, counts
+
+
+def check_train_step_sharded(cfg) -> dict:
+    """make_train_step on the card's (1, 1) mesh (``make_host_mesh``): one step at full
+    width, depth cut to TRAIN_RESTART_LAYERS, with params and AdamW state as DTensors
+    in the rules' placements, against make_train_fn's step on the same inputs from
+    the same seed: loss, grad norm, lr and every param bitwise equal.  The kernels
+    get plain local tensors (the gathered leaves), so each launches as on the
+    unsharded path."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import make_train_fn, make_train_step
+
+    mesh = make_host_mesh()
+    cut = rules.pad_config_for_mesh(dataclasses.replace(cfg, num_layers=TRAIN_RESTART_LAYERS), mesh)
+    ocfg = adamw.AdamWConfig(**TRAIN_OCFG)
+    batch = cuda_batch(cut, **{**TRAIN_DATA, "seed": 3})
+
+    def fresh():
+        return get_model(cut).init_params(cut, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    plain = fresh()
+    zero_counts()
+    _, _, want = make_train_fn(cut, ocfg)(plain, adamw.init(plain), batch)
+    plain_counts = kernel_counts()
+    step, _, pspecs, _, ospecs = make_train_step(cut, mesh, ocfg)
+    model = fresh()
+    params = rules.distribute(dict(model.named_parameters()), pspecs)
+    opt = rules.distribute(adamw.init(model), ospecs)
+    del model
+    zero_counts()
+    _, _, got = step(params, opt, batch)
+    sharded_counts = kernel_counts()
+    diffs = {n: (params[n].full_tensor() - p).abs().max().item() for n, p in plain.named_parameters()
+             if not torch.equal(params[n].full_tensor(), p)}
+    metrics = {k: [got[k].item(), want[k].item()] for k in want}
+    placements = sorted({str(tuple(p.placements)) for p in params.values()})
+    del params, opt
+    torch.distributed.destroy_process_group()  # make_host_mesh started it
+    if diffs or any(a != b for a, b in metrics.values()) or sharded_counts != plain_counts:
+        fail(f"make_train_step on the (1, 1) mesh: params differ {diffs}, metrics {metrics}, "
+             f"launches {sharded_counts} against {plain_counts}")
+    return {"mesh": rules.mesh_axes(mesh), "layers": cut.num_layers,
+            "reduced": {"num_layers": [cfg.num_layers, cut.num_layers]},
+            "params": sum(p.numel() for p in plain.parameters()), "bitwise_equal": True,
+            "metrics_sharded_vs_plain": metrics, "launches": sharded_counts, "placements": placements}
+
+
+def run_launcher(args: list[str], *, kill_at: str | None = None, timeout: float = 600) -> tuple[int, list[str]]:
+    """``python -m repro_torch.launch.train`` with ``args`` from the checkout's src, on
+    the card; returns its exit code and stdout lines.  With ``kill_at``, the process
+    is killed (SIGKILL) as soon as a line starts with it."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines = []
+    try:
+        t0 = time.perf_counter()
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if kill_at and line.startswith(kill_at):
+                proc.kill()
+                break
+            if time.perf_counter() - t0 > timeout:
+                proc.kill()
+                fail(f"launcher {args} ran past {timeout} s")
+        err = proc.stderr.read()
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 and not kill_at:
+        fail(f"launcher {args} exited {rc}: {err[-3000:]}")
+    return rc, lines
+
+
+LAUNCH_FULL = ["--arch", "mamba2-780m", "--full", "--steps", "6", "--seq", "1024", "--batch", "4"]
+# the reduced flow of tests/test_system.py:34 through the launcher: a checkpoint every
+# 4 steps, a kill at the first, a --resume, and the end against an uninterrupted run
+LAUNCH_RESUME = ["--arch", "mamba2-780m", "--steps", "40", "--seq", "64", "--batch", "8", "--ckpt-every", "4"]
+
+
+def final_state(cfg, directory: str) -> tuple[dict[str, torch.Tensor], int]:
+    """The launcher's last checkpoint under ``directory``, restored on the CPU, by leaf path."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+
+    model = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    like = {"params": dict(model.named_parameters()), "opt": adamw.init(model)}
+    tree, step = CheckpointManager(directory).restore(like)
+
+    def leaves(t, prefix=""):
+        if isinstance(t, dict):
+            return {path: leaf for k, v in t.items() for path, leaf in leaves(v, f"{prefix}{k}/").items()}
+        return {prefix[:-1]: t}
+
+    return leaves(tree), step
+
+
+def phase_launch() -> dict:
+    """``python -m repro_torch.launch.train`` as a user runs it, on the card.
+
+    mamba2-780m at full width and depth, 6 steps of 4 x 1024 tokens, no
+    checkpoint (a full save would write ~9.4 GB): exit 0, finite losses, and in
+    every step the launches and plain backwards ``remat_launches`` gives (the
+    launcher's ``--metrics-json`` counts them in its own process).  Then the
+    reduced config: an uninterrupted run, and a run killed at its first
+    checkpoint and resumed with ``--resume``, whose last checkpoints must be
+    bitwise equal."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.sharding import rules
+
+    cfg = ARCHS["mamba2-780m"]
+    with tempfile.TemporaryDirectory() as tmp:
+        log = Path(tmp) / "steps.jsonl"
+        t0 = time.perf_counter()
+        _, lines = run_launcher([*LAUNCH_FULL, "--metrics-json", str(log)])
+        wall_s = time.perf_counter() - t0
+        steps = [json.loads(ln) for ln in log.read_text().splitlines()]
+        want = {"ssd_scan": remat_launches(cfg, cfg.num_layers), "flash_attention": [0, 0]}
+        if len(steps) != 6 or lines[-1] != "done":
+            fail(f"launcher: {len(steps)} steps logged, last line {lines[-1:]}")
+        for row in steps:
+            if not all(np.isfinite(row[k]) for k in ("loss", "grad_norm", "lr")) or {k: row[k] for k in want} != want:
+                fail(f"launcher step {row['step']}: {row}, expected finite values and launches {want}")
+        warm = [r["ms"] for r in steps[1:]]
+        ms = sum(warm) / len(warm)
+        tokens = 4 * 1024
+
+        one_card = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+        reduced = rules.pad_config_for_mesh(cfg.reduced(), one_card)
+        whole, cut = Path(tmp) / "whole", Path(tmp) / "cut"
+        run_launcher([*LAUNCH_RESUME, "--ckpt-dir", str(whole)])
+        rc_killed, killed = run_launcher([*LAUNCH_RESUME, "--ckpt-dir", str(cut)], kill_at="checkpointed @")
+        _, resumed = run_launcher([*LAUNCH_RESUME, "--ckpt-dir", str(cut), "--resume"])
+        at = int(next(ln for ln in resumed if ln.startswith("resumed at step")).split()[-1])
+        (a, sa), (b, sb) = final_state(reduced, str(whole)), final_state(reduced, str(cut))
+        differ = [k for k, t in a.items() if not torch.equal(t, b[k])]
+        if sa != sb or not 0 < at < sa or differ:
+            fail(f"launcher resume: last checkpoints at {sa} and {sb}, resumed at {at}, leaves differ {differ}")
+    return {"phase": "launch", "arch": cfg.name, "command": ["python", "-m", "repro_torch.launch.train", *LAUNCH_FULL],
+            "remat": cfg.remat, "steps": steps, "ms_per_step_warm": ms, "tokens_per_s": tokens / (ms / 1e3),
+            "wall_s": wall_s, "stdout": lines,
+            "resume": {"command": LAUNCH_RESUME, "killed_rc": rc_killed, "killed_after": killed[-1],
+                       "resumed_at": at, "last_checkpoint": sa, "leaves": len(a), "bitwise_equal": True},
+            "nvidia_smi": smi()}
 
 
 def main() -> None:
@@ -1598,10 +1797,13 @@ def main() -> None:
     train, train_zamba2, train_launches = phase_train()
     emit(train)
     emit(train_zamba2)
+    launch = phase_launch()
+    emit(launch)
     # each kernel's launches in the counted runs of the main paths, by path
     ssd_row["launches_by_path"] = {"mamba2_serve": mamba2_launches,
                                    **{k: v["ssd_scan"] for k, v in hybrid_launches.items()},
-                                   **{k: v["ssd_scan"][0] for k, v in train_launches.items()}}
+                                   **{k: v["ssd_scan"][0] for k, v in train_launches.items()},
+                                   "mamba2_launch": sum(r["ssd_scan"][0] for r in launch["steps"])}
     fa_row["launches_by_path"] = {"qwen2.5-3b_forward": dense_launches,
                                   **{k: v["flash_attention"] for k, v in hybrid_launches.items()},
                                   **{k: v["flash_attention"][0] for k, v in train_launches.items()}}

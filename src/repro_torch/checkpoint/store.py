@@ -371,8 +371,15 @@ class LogStructuredCheckpointer:
         return total
 
 
+# bfloat16 as its raw 16-bit words: numpy has no bfloat16 without ml_dtypes, which the
+# port does not need.  The header names it "bfloat16", as the reference's does for an
+# ml_dtypes array, and the words are the same bytes.
+BF16_WORDS = np.dtype(np.uint16, metadata={"dtype": "bfloat16"})
+
+
 def _meta(arr: np.ndarray) -> bytes:
-    h = json.dumps({"dtype": str(arr.dtype), "shape": list(arr.shape)}).encode()
+    dtype = (arr.dtype.metadata or {}).get("dtype", str(arr.dtype))
+    h = json.dumps({"dtype": dtype, "shape": list(arr.shape)}).encode()
     return h + struct.pack("<I", len(h))
 
 
@@ -380,7 +387,8 @@ def _unmeta(payload: bytes) -> np.ndarray:
     (hlen,) = struct.unpack("<I", payload[-4:])
     h = json.loads(payload[-4 - hlen : -4])
     data = payload[: -4 - hlen]
-    return np.frombuffer(data, dtype=np.dtype(h["dtype"])).reshape(h["shape"]).copy()
+    dtype = BF16_WORDS if h["dtype"] == "bfloat16" else np.dtype(h["dtype"])
+    return np.frombuffer(data, dtype=dtype).reshape(h["shape"]).copy()
 
 
 def _manifest_row(key: str, e: _Entry) -> dict:

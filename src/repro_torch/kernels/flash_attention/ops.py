@@ -12,6 +12,7 @@ through the kernel and that each launch had its backward.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import kernel
 from .ref import flash_attention_ref
@@ -20,12 +21,19 @@ LAUNCHES = 0
 BACKWARDS = 0
 
 
+def _refuse_dtensors(*ts) -> None:
+    """The kernel reads raw device pointers: a DTensor there is a fault, not a fallback."""
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("flash_attention's kernel takes plain local tensors, not DTensors: gather them first")
+
+
 class FlashAttention(torch.autograd.Function):
     """Forward: the kernel.  Backward: autograd of ``flash_attention_ref`` on the saved inputs."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: int):
         global LAUNCHES
+        _refuse_dtensors(q, k, v)
         out = kernel.flash_attention_cuda(q, k, v, window=window)
         LAUNCHES += 1
         ctx.save_for_backward(q, k, v)

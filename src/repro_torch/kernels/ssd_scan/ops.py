@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from . import kernel
 from .ref import ssd_scan_ref
@@ -41,6 +42,12 @@ def pad_to_chunks(x, dt, bmat, cmat, *, chunk: int):
     return x, dt, bmat, cmat, L
 
 
+def _refuse_dtensors(*ts) -> None:
+    """The kernel reads raw device pointers: a DTensor there is a fault, not a fallback."""
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("ssd_scan's kernel takes plain local tensors, not DTensors: gather them first")
+
+
 class SSDScan(torch.autograd.Function):
     """Forward: pad, launch the kernel, slice.  Backward: autograd of ``ssd_scan_ref``
     on the saved inputs; nothing of the plain version is kept from the forward."""
@@ -48,6 +55,7 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, a, bmat, cmat, chunk: int):
         global LAUNCHES
+        _refuse_dtensors(x, dt, a, bmat, cmat)
         s = x.shape[1]
         xp, dtp, bp, cp, L = pad_to_chunks(x, dt, bmat, cmat, chunk=chunk)
         y, state = kernel.ssd_scan_cuda(xp, dtp, a, bp, cp, chunk=L)

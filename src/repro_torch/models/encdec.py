@@ -37,7 +37,7 @@ from .layers import (
     layernorm_init,
     sinusoid_positions,
 )
-from .transformer import _check, cross_entropy
+from .transformer import _check, cross_entropy, remat
 
 MAX_DECODER_POS = 65536  # learned decoder positions (covers the 32k shapes)
 
@@ -105,11 +105,16 @@ def encode(cfg: ArchConfig, params: EncDec, frame_embeds: torch.Tensor) -> torch
     f = frame_embeds.shape[1]
     x = frame_embeds.to(cd) + sinusoid_positions(f, cfg.d_model, frame_embeds.device).to(cd)[None]
     for lp in params.enc_layers:
-        q, k, v = _project_qkv(cfg, lp.attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
-        h = _sdpa(cfg, q, k, v, lp.attn.kvm, causal=False)
-        x = x + torch.einsum("bshk,hkd->bsd", h, lp.attn.wo.to(cd))
-        x = x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
+        x = remat(cfg, _enc_body, cfg, lp, x)
     return layernorm(params.enc_norm, x, cfg.norm_eps)
+
+
+def _enc_body(cfg: ArchConfig, lp: EncLayer, x: torch.Tensor) -> torch.Tensor:
+    cd = _dtype(cfg.compute_dtype)
+    q, k, v = _project_qkv(cfg, lp.attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
+    h = _sdpa(cfg, q, k, v, lp.attn.kvm, causal=False)
+    x = x + torch.einsum("bshk,hkd->bsd", h, lp.attn.wo.to(cd))
+    return x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
 
 
 # ------------------------------------------------------------------ decoder
@@ -138,19 +143,25 @@ def _logits(cfg: ArchConfig, params: EncDec, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,vd->bsv", layernorm(params.dec_norm, x, cfg.norm_eps), params.embedding.embed.to(cd))
 
 
+def _dec_body(cfg: ArchConfig, lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor):
+    """The reference's decoder scan body: the layer's cross K/V, self-attention, then
+    ``_dec_tail``.  Returns the new x, the self-attention K/V and the cross K/V."""
+    cd = _dtype(cfg.compute_dtype)
+    kv = _cross_kv(cfg, lp, enc_out)
+    q, k, v = _project_qkv(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
+    h = _sdpa(cfg, q, k, v, lp.self_attn.kvm, causal=True)
+    x = x + torch.einsum("bshk,hkd->bsd", h, lp.self_attn.wo.to(cd))
+    return _dec_tail(cfg, lp, x, kv), k, v, kv
+
+
 def _prefix(cfg: ArchConfig, params: EncDec, batch: dict[str, Any], cache: dict[str, Any] | None = None):
     """The decoder over the whole prompt; fills ``cache``'s K/V and cross K/V when given."""
-    cd = _dtype(cfg.compute_dtype)
     enc_out = encode(cfg, params, batch["frame_embeds"])
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = _embed_tokens(cfg, params, tokens, 0)
     for i, lp in enumerate(params.dec_layers):
-        kv = _cross_kv(cfg, lp, enc_out)
-        q, k, v = _project_qkv(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
-        h = _sdpa(cfg, q, k, v, lp.self_attn.kvm, causal=True)
-        x = x + torch.einsum("bshk,hkd->bsd", h, lp.self_attn.wo.to(cd))
-        x = _dec_tail(cfg, lp, x, kv)
+        x, k, v, kv = remat(cfg, _dec_body, cfg, lp, x, enc_out)
         if cache is not None:
             cache["k"][i, :, :s] = k.to(cache["k"].dtype)
             cache["v"][i, :, :s] = v.to(cache["v"].dtype)

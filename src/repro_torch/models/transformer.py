@@ -6,7 +6,9 @@ tree, and the reference's ``lax.scan`` over stacked layers becomes a loop
 (its ``lax.cond`` an ``if``).  ``forward`` and ``loss_fn`` follow the
 caller's grad mode, as the reference's functions may be differentiated;
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
-``remat`` is ignored: the backward keeps every activation.  The
+With ``cfg.remat`` set and grad enabled, each layer body runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): the
+backward keeps each layer's input and recomputes the rest.  The
 hybrid (zamba2-style) family runs Mamba2 layers and applies ONE
 weight-shared attention block (``shared_block``) after every
 ``attn_every``-th layer; each application site has its own K/V cache (weights
@@ -29,6 +31,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
 from .layers import (
@@ -144,6 +147,24 @@ def _shared_site(cfg: ArchConfig, i: int) -> bool:
     return cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0
 
 
+def remat(cfg: ArchConfig, body, *args):
+    """``body(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat`` is set and
+    grad is enabled, as the reference wraps its scan body in ``jax.checkpoint``."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
+def _mamba2_body(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The reference's scan body for the ssm and hybrid families: Mamba2 layer ``i``
+    and, at a shared site, the shared block."""
+    lp = params.layers[i]
+    x = x + lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps))
+    if _shared_site(cfg, i):
+        x, _ = _dense_body(cfg, params.shared_block, x, positions)
+    return x
+
+
 def _embed_inputs(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.Tensor:
     """Token embeddings; for the vlm family the patch embeddings come first."""
     x = embed(cfg, params.embedding, batch["tokens"])
@@ -162,15 +183,13 @@ def forward(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> tuple[torch.T
     x = _embed_inputs(cfg, params, batch)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     if cfg.family in ("ssm", "hybrid"):
-        for i, lp in enumerate(params.layers):
-            x = x + lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps))
-            if _shared_site(cfg, i):
-                x, _ = _dense_body(cfg, params.shared_block, x, positions)
+        for i in range(len(params.layers)):
+            x = remat(cfg, _mamba2_body, cfg, params, i, x, positions)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         auxs = []
         for lp in params.layers:
-            x, a = _dense_body(cfg, lp, x, positions)
+            x, a = remat(cfg, _dense_body, cfg, lp, x, positions)
             auxs.append(a)
         aux = torch.stack(auxs).sum()
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
@@ -179,13 +198,19 @@ def forward(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> tuple[torch.T
     return unembed(cfg, params.embedding, x), aux
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy in float32 over labels >= 0."""
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The next-token negative log likelihood summed over labels >= 0, and their count, in float32."""
     lg = logits.to(torch.float32)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in float32 over labels >= 0."""
+    total, count = nll_sum(logits, labels)
+    return total / count.clamp(min=1.0)
 
 
 def loss_fn(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.Tensor:

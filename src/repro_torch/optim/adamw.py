@@ -68,12 +68,16 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: dict[str, torch.Tensor], state: dict,
-           params: nn.Module | dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """One step: params and state in place; returns {"grad_norm", "lr"} as 0-d tensors."""
+           params: nn.Module | dict[str, torch.Tensor], *, grad_norm: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """One step: params and state in place; returns {"grad_norm", "lr"} as 0-d tensors.
+
+    ``grad_norm`` is the global norm of the gradients where ``grads`` holds only
+    this rank's shards of them (a sharded step); None computes it from ``grads``.
+    """
     ps = named(params)
     state["step"] += 1
     step = state["step"].to(torch.float32)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) if cfg.grad_clip else 1.0
     lr = lr_at(cfg, state["step"])
     b1c = 1 - cfg.b1 ** step

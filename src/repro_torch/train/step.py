@@ -13,30 +13,64 @@ layers) and microbatched gradient accumulation.
 
 On the card the Mamba2 and flash-attention layers run their CUDA kernels
 forward; their backward is the gradient of the plain version, recomputed
-(``kernels/*/ops.py``).  The sharded ``make_train_step`` and the abstract
-shapes of params, optimizer state and cache need the sharding rules, which
-the port does not have yet.
+(``kernels/*/ops.py``).
+
+``make_train_step`` is the sharded step over a ``DeviceMesh``: params and
+AdamW state live between steps as DTensors in the placements of
+``repro_torch.sharding.rules``, each rank holding only its shards.  The
+abstract trees (``abstract_params``, ``abstract_opt_state``,
+``abstract_cache``) are the same trees on the ``meta`` device.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from repro_torch.convert import STACKED
 from repro_torch.models import get_model
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import Attention, kv_head_map
+from repro_torch.models.transformer import nll_sum
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules
 
 
-class _Loss(nn.Module):
-    """The model's loss as a module's forward, so ``torch.func.functional_call`` can swap its leaves."""
+def abstract_params(cfg: ArchConfig) -> nn.Module:
+    """The model with every leaf on the ``meta`` device: shapes and dtypes, no storage."""
+    return get_model(cfg).init_params(cfg, torch.Generator(), device="meta")
 
-    def __init__(self, cfg: ArchConfig, model: nn.Module):
+
+def abstract_opt_state(params_shape) -> dict:
+    return adamw.init(params_shape)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+    return get_model(cfg).init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+class _LossAndGrad(nn.Module):
+    """``loss(cfg, model, batch)`` and its gradient w.r.t. ``leaves``, as a module's
+    forward: under ``torch.func.functional_call`` the swapped leaves stay in place
+    for the backward too, where ``remat`` recomputes each layer's forward."""
+
+    def __init__(self, cfg: ArchConfig, model: nn.Module, loss):
         super().__init__()
-        self.cfg, self.model = cfg, model
+        self.cfg, self.model, self.loss = cfg, model, loss
 
-    def forward(self, batch):
-        return get_model(self.cfg).loss_fn(self.cfg, self.model, batch)
+    def forward(self, batch, leaves: list[torch.Tensor]):
+        loss = self.loss(self.cfg, self.model, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves, materialize_grads=True)
+
+
+def _loss_and_grad(cfg: ArchConfig, model: nn.Module, loss, leaves: dict[str, torch.Tensor], batch):
+    """(loss, {name: gradient}) of ``loss`` with ``model``'s parameters swapped for ``leaves``."""
+    fn = _LossAndGrad(cfg, model, loss)
+    value, grads = torch.func.functional_call(fn, {f"model.{n}": t for n, t in leaves.items()},
+                                              (batch, list(leaves.values())))
+    return value, dict(zip(leaves, grads))
 
 
 def _stack_layers(grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -86,16 +120,11 @@ def make_train_fn(cfg: ArchConfig, ocfg: adamw.AdamWConfig | None = None, *, com
     def train_step(params: nn.Module, opt_state: dict, batch: dict):
         if grad_dtype != "float32":
             dt = getattr(torch, grad_dtype)
-            cast = {
-                f"model.{n}": p.detach().to(dt).requires_grad_() if p.dtype == torch.float32 else p
-                for n, p in params.named_parameters()
-            }
-            loss = torch.func.functional_call(_Loss(cfg, params), cast, (batch,))
-            leaves = list(cast.values())
-            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-            grads = dict(zip((n[len("model."):] for n in cast), grads))
+            cast = {n: p.detach().to(dt).requires_grad_() if p.dtype == torch.float32 else p
+                    for n, p in params.named_parameters()}
+            loss, grads = _loss_and_grad(cfg, params, m.loss_fn, cast, batch)
             metrics = adamw.update(ocfg, grads, opt_state, params)
-            metrics["loss"] = loss.detach()
+            metrics["loss"] = loss
             return params, opt_state, metrics
         if accum_steps > 1:
             loss = torch.zeros((), dtype=torch.float32, device=opt_state["step"].device)
@@ -121,6 +150,104 @@ def make_train_fn(cfg: ArchConfig, ocfg: adamw.AdamWConfig | None = None, *, com
         return params, opt_state, metrics
 
     return train_step
+
+
+def _shell(cfg: ArchConfig, device_type: str) -> nn.Module:
+    """The model's modules with meta leaves and real buffers (each attention's q-head ->
+    kv-head map) on ``device_type``: what a sharded step fills with gathered leaves."""
+    shell = abstract_params(cfg)
+    for mod in shell.modules():
+        if isinstance(mod, Attention):
+            mod.kvm = kv_head_map(cfg.num_heads, cfg.num_kv_heads, cfg.orig_num_heads).to(device_type)
+    return shell
+
+
+def _reduce_squares(sq: list[torch.Tensor], grads: list[DTensor]) -> torch.Tensor:
+    """Each leaf's sum of squares over its whole tensor, from each rank's shard: one
+    all-reduce over the mesh dims that split the leaf, per placement pattern."""
+    out = list(sq)
+    groups: dict[tuple, list[int]] = {}
+    for i, g in enumerate(grads):
+        groups.setdefault(tuple(g.placements), []).append(i)
+    for pattern, idx in groups.items():
+        mesh = grads[idx[0]].device_mesh
+        partial = [Partial() if isinstance(pl, Shard) else Replicate() for pl in pattern]
+        summed = DTensor.from_local(torch.stack([sq[i] for i in idx]), mesh, partial).full_tensor()
+        for j, i in enumerate(idx):
+            out[i] = summed[j]
+    return torch.stack(out)
+
+
+def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None, *, layout: str = "baseline",
+                    grad_dtype: str = "float32", **kw):
+    """The train step sharded over ``mesh``; returns ``(step, params_shape, pspecs,
+    opt_shape, ospecs)`` as the reference does.
+
+    ``params_shape`` is the meta model, ``pspecs`` its ``rules.param_shardings``
+    under ``layout``, ``opt_shape`` the meta AdamW state and ``ospecs`` its
+    shardings (``mu`` and ``nu`` as the params, ``step`` replicated).  The
+    caller places params and state with ``rules.distribute``.  ``step(params,
+    opt_state, batch)`` takes params (``{name: DTensor}``) and state in those
+    placements and the global batch, updates both in place, and returns them
+    with the metrics of ``make_train_fn`` on the whole batch.  Per step:
+
+    - each rank takes its rows of the batch (``rules.batch_specs``);
+    - each param is all-gathered (``full_tensor``; in ``grad_dtype``, cast
+      before the gather) and the model runs on the rank's rows: the loss is
+      the rank's summed token loss over the global token count, so the ranks'
+      losses and gradients sum to the whole batch's (a MoE's load-balancing
+      loss enters as the mean of the ranks' own);
+    - the gradients are summed over the mesh dims that split the batch and
+      scattered into the params' placements (``redistribute``: a
+      reduce-scatter), the global grad norm is reduced from the shards, and
+      AdamW updates each rank's shards in place.
+
+    ``compress`` and ``accum_steps`` are ``make_train_fn``'s alone.
+    """
+    if kw:
+        raise ValueError(f"make_train_step takes no {sorted(kw)}: compression and accumulation are make_train_fn's")
+    ocfg = ocfg or adamw.AdamWConfig()
+    m = get_model(cfg)
+    params_shape = abstract_params(cfg)
+    pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
+    opt_shape = abstract_opt_state(params_shape)
+    ospecs = {"mu": pspecs, "nu": pspecs, "step": rules.NamedSharding(mesh, ())}
+    shell = _shell(cfg, mesh.device_type)
+    dt = getattr(torch, grad_dtype)
+
+    def step(params: dict[str, DTensor], opt_state: dict, batch: dict[str, torch.Tensor]):
+        bspecs = rules.batch_specs(cfg, mesh, batch, layout)
+        rows = {k: distribute_tensor(v.to(mesh.device_type), mesh, rules.to_placements(bspecs[k], mesh),
+                                     src_data_rank=None).to_local() for k, v in batch.items()}
+        split = [isinstance(pl, Shard) for pl in rules.to_placements(bspecs["tokens"], mesh)]
+        partial = [Partial() if s else Replicate() for s in split]
+        shards = math.prod(mesh.size(i) for i, s in enumerate(split) if s)
+        count = (batch["labels"] >= 0).to(torch.float32).sum().to(mesh.device_type).clamp(min=1.0)
+
+        def loss_of(cfg, model, local):
+            logits, aux = m.forward(cfg, model, local)
+            return nll_sum(logits, local["labels"])[0] / count + 0.01 * aux / shards
+
+        with torch.no_grad():
+            full = {n: (p.to(dt) if p.dtype == torch.float32 else p).full_tensor() for n, p in params.items()}
+        leaves = {n: t.requires_grad_() for n, t in full.items()}
+        loss, grads = _loss_and_grad(cfg, shell, loss_of, leaves, rows)
+        del full, leaves
+        with torch.no_grad():
+            loss = DTensor.from_local(loss, mesh, partial).full_tensor()
+            sharded = [DTensor.from_local(grads.pop(n), mesh, partial).redistribute(mesh, p.placements)
+                       for n, p in params.items()]
+            local = [g.to_local() for g in sharded]
+            gnorm = _reduce_squares([g.to(torch.float32).square().sum() for g in local], sharded).sum().sqrt()
+            state = {"mu": {n: t.to_local() for n, t in opt_state["mu"].items()},
+                     "nu": {n: t.to_local() for n, t in opt_state["nu"].items()},
+                     "step": opt_state["step"].to_local()}
+            metrics = adamw.update(ocfg, dict(zip(params, local)), state,
+                                   {n: p.to_local() for n, p in params.items()}, grad_norm=gnorm)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return step, params_shape, pspecs, opt_shape, ospecs
 
 
 def make_prefill_fn(cfg: ArchConfig, max_len: int):

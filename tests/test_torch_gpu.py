@@ -390,3 +390,26 @@ def test_bench_kernels_run_the_cuda_kernels(cuda):
     for row, check in zip(rows, ("kernel_err", "kernel_err", "kernel_exact")):
         fields = dict(p.split("=", 1) for p in row.split(",", 2)[2].split(";"))
         assert fields["impl"] == "cuda" and check in fields and float(fields["kernel_us"]) > 0, row
+
+
+def test_kernel_functions_refuse_dtensors(cuda):
+    """The kernels read raw device pointers: handed a DTensor (here on the card's
+    (1, 1) mesh), each entry point raises instead of reading its pointer, and
+    makes no launch."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh()
+
+    def dt(t):
+        return DTensor.from_local(t, mesh, [Replicate(), Replicate()])
+
+    x, dtt, a, bm, cm = _inputs(1, 64, 2, 16, 1, 16, 0, torch.bfloat16, cuda)
+    q, k, v = _fa_inputs(1, 64, 2, 2, 32, 0, torch.bfloat16, cuda)
+    launches = ops.LAUNCHES, fa_ops.LAUNCHES
+    with pytest.raises(TypeError, match="DTensor"):
+        ops.ssd_scan(dt(x), dt(dtt), dt(a), dt(bm), dt(cm), chunk=16)
+    with pytest.raises(TypeError, match="DTensor"):
+        fa_ops.flash_attention(dt(q), dt(k), dt(v))
+    assert (ops.LAUNCHES, fa_ops.LAUNCHES) == launches

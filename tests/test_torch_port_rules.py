@@ -156,6 +156,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
             m.init_params(cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             m.init_cache(cfg, 2, 64)
+    # the training launcher, the host mesh and the examples (the store demos touch no device)
+    from repro_torch.examples import quickstart, serve_lm, train_lm
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "mamba2-780m"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.train_demo()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_lm.main()
+    monkeypatch.setattr(sys, "argv", ["train_lm"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_lm.main()
 
 
 def test_functions_refuse_a_config_the_params_were_not_built_for():

@@ -7,24 +7,34 @@ AdamW's first step moves each param by about lr times the sign of its
 gradient, so the params are held to 1e-3 of lr: a wrong gradient moves an
 element by 2 lr.  Then the reference's system tests of training, ported:
 the loss falls over 30 steps, and a run restored from a checkpoint equals
-the uninterrupted one bitwise.
+the uninterrupted one bitwise.  With ``remat`` on, every family's step is
+bitwise its ``remat=False`` step and matches the reference's ``jax.checkpoint``
+step; the abstract trees equal the reference's ``eval_shape`` trees; and
+``make_train_step`` on 4 gloo ranks ((2, 2) mesh) equals ``make_train_fn``'s
+whole-batch step, each rank keeping only its shards.
 """
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.optim import adamw as jax_adamw
+from repro.train import step as jax_step
 from repro.train.step import make_train_fn as jax_make_train_fn
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS
-from repro_torch.convert import _port_leaves
+from repro_torch.convert import STACKED, _port_leaves
 from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.models import get_model
 from repro_torch.optim import adamw
-from repro_torch.train.step import make_decode_fn, make_prefill_fn, make_train_fn
-from torch_parity import build
+from repro_torch.sharding import rules
+from repro_torch.train.step import (abstract_cache, abstract_opt_state, abstract_params, make_decode_fn,
+                                    make_prefill_fn, make_train_fn)
+from torch_parity import build, run_ranks
 
 OCFG = dict(lr=1e-3, warmup_steps=0, total_steps=50)
 PARAM_TOL = 1e-3 * OCFG["lr"]  # of the step's size, lr
@@ -41,9 +51,10 @@ def _batches(cfg, seq_len=24, global_batch=2, step=0):
     return {k: torch.from_numpy(v) for k, v in hb.items()}, {k: jnp.asarray(v) for k, v in hb.items()}
 
 
-def _step_both(monkeypatch, name, **kw):
-    """One step of each package from the same params and batch.  Returns, per
-    package, (params, opt state, metrics, the grads that AdamW was given)."""
+def _step_both(monkeypatch, name, changes=None, **kw):
+    """One step of each package from the same params and batch, ``changes`` made to
+    both configs.  Returns, per package, (params, opt state, metrics, the grads
+    that AdamW was given)."""
     seen = {}
 
     def spy(key, update):
@@ -54,7 +65,7 @@ def _step_both(monkeypatch, name, **kw):
 
     monkeypatch.setattr(adamw, "update", spy("port", adamw.update))
     monkeypatch.setattr(jax_adamw, "update", spy("ref", jax_adamw.update))
-    cfg, params, jcfg, jparams = build(name)
+    cfg, params, jcfg, jparams = build(name, **(changes or {}))
     batch, jbatch = _batches(cfg)
     opt = adamw.init(params)
     params, opt, metrics = make_train_fn(cfg, adamw.AdamWConfig(**OCFG), **kw)(params, opt, batch)
@@ -190,3 +201,164 @@ def test_prefill_and_decode_fns():
     assert nxt.dtype == torch.int32 and nxt.shape == (2, 1)
     assert torch.equal(nxt[:, 0], torch.argmax(dec_logits[:, -1], dim=-1).to(torch.int32))
     assert int(new_cache["pos"]) == 21
+
+
+# ------------------------------------------------------------------- remat
+@pytest.mark.parametrize("name,kw", [(n, {}) for n in sorted(ARCHS)] + [("qwen2.5-3b", {"grad_dtype": "bfloat16"})],
+                         ids=lambda v: v if isinstance(v, str) else "-".join(f"{k}={x}" for k, x in v.items()) or "f32")
+def test_remat_step_is_bitwise_the_plain_step_and_matches_reference(monkeypatch, name, kw):
+    """remat=True (which reduced() turns off) recomputes each layer in the backward:
+    the loss, the gradients AdamW sees and the updated params are bitwise those of
+    remat=False, and the step matches the reference's jax.checkpoint step."""
+    port, ref = _step_both(monkeypatch, name, {"remat": True}, **kw)
+    _check_step(port, ref, grad_tol=GRAD_TOL_BF16 if kw else GRAD_TOL)
+    plain, _ = _step_both(monkeypatch, name, {"remat": False}, **kw)
+    (params, _, metrics, grads), (pparams, _, pmetrics, pgrads) = port, plain
+    assert all(torch.equal(metrics[k], pmetrics[k]) for k in metrics)
+    assert all(torch.equal(grads[n], pgrads[n]) for n in grads)
+    assert all(torch.equal(a, b) for a, b in zip(params.parameters(), pparams.parameters()))
+
+
+# -------------------------------------------------------- the abstract trees
+def _ref_shapes(tree) -> dict[str, tuple]:
+    """Each leaf of a reference tree of ShapeDtypeStructs as (shape, dtype name), by path."""
+    return {"/".join(str(getattr(k, "key", k)) for k in path): (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _port_shapes(tree, stacked: bool) -> dict[str, tuple]:
+    """The same of a port tree; with ``stacked``, per-layer leaves stacked as the reference's."""
+    def flat(t, prefix=""):
+        if isinstance(t, dict):
+            return {p: v for k, x in t.items() for p, v in flat(x, f"{prefix}{k}/").items()}
+        return {prefix[:-1]: (tuple(t.shape), str(t.dtype).removeprefix("torch."))}
+
+    leaves = flat(tree)
+    if not stacked:
+        return leaves
+    layers: dict[str, list[tuple]] = {}
+    out: dict[str, tuple] = {}
+    for name, leaf in leaves.items():
+        stack, _, rest = name.partition(".")
+        i, _, rest = rest.partition(".")
+        if stack in STACKED and i.isdigit():
+            layers.setdefault(f"{stack}/{rest.replace('.', '/')}", []).append(leaf)
+        else:
+            out[name.replace(".", "/")] = leaf
+    for key, per_layer in layers.items():
+        assert len(set(per_layer)) == 1, key
+        (shape, dtype), = set(per_layer)
+        out[key] = ((len(per_layer), *shape), dtype)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_abstract_trees_equal_reference_eval_shape(name):
+    """abstract_params, abstract_opt_state and abstract_cache on the meta device:
+    every leaf's shape and dtype equal the reference's eval_shape trees, at full size."""
+    cfg, jcfg = ARCHS[name], JAX_ARCHS[name]
+    shell = abstract_params(cfg)
+    assert all(p.is_meta for p in shell.parameters())
+    jshape = jax_step.abstract_params(jcfg)
+    assert _port_shapes(dict(shell.named_parameters()), stacked=True) == _ref_shapes(jshape)
+    opt, jopt = abstract_opt_state(shell), jax_step.abstract_opt_state(jshape)
+    assert opt["step"].is_meta and _ref_shapes(jopt["step"]) == {"": ((), "int32")}
+    for m in ("mu", "nu"):
+        assert _port_shapes(opt[m], stacked=True) == _ref_shapes(jopt[m])
+    cache = abstract_cache(cfg, 2, 64)
+    assert all(t.is_meta for t in jax.tree.leaves(cache))
+    assert _port_shapes(cache, stacked=False) == _ref_shapes(jax_step.abstract_cache(jcfg, 2, 64))
+
+
+# ---------------------------------------------------- the sharded train step
+SHARDED_CASES = [(n, layout) for n in ("mamba2-780m", "qwen2.5-3b") for layout in ("baseline", "pure-dp")]
+SHARDED = f"""
+from repro_torch.configs import ARCHS
+from repro_torch.data.pipeline import DataConfig, host_batch
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import get_model
+from repro_torch.optim import adamw
+from repro_torch.sharding import rules
+from repro_torch.train.step import make_train_step
+
+mesh = make_host_mesh(model=2, device="cpu")
+result = {{}}
+for name, layout in {SHARDED_CASES!r}:
+    cfg = rules.pad_config_for_mesh(ARCHS[name].reduced(), mesh, layout)
+    model = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    hb = host_batch(cfg, DataConfig(seq_len=24, global_batch=4, seed=0), 0)
+    step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, adamw.AdamWConfig(**{OCFG!r}), layout=layout)
+    params = rules.distribute(dict(model.named_parameters()), pspecs)
+    opt = rules.distribute(adamw.init(model), ospecs)
+    out_params, out_opt, metrics = step(params, opt, {{k: torch.from_numpy(v) for k, v in hb.items()}})
+    assert out_params is params and out_opt is opt
+    result[(name, layout)] = {{
+        "coordinate": mesh.get_coordinate(),
+        "specs": {{n: s.spec for n, s in pspecs.items()}},
+        "local": {{n: (tuple(p.to_local().shape), [str(pl) for pl in p.placements]) for n, p in params.items()}},
+        "local_state": {{m: {{n: tuple(t.to_local().shape) for n, t in opt[m].items()}} for m in ("mu", "nu")}},
+        "step": (tuple(opt["step"].to_local().shape), int(opt["step"].to_local())),
+        "params": {{n: p.full_tensor() for n, p in params.items()}},
+        "mu": {{n: t.full_tensor() for n, t in opt["mu"].items()}},
+        "nu": {{n: t.full_tensor() for n, t in opt["nu"].items()}},
+        "metrics": {{k: v.item() for k, v in metrics.items()}},
+    }}
+"""
+
+
+@pytest.fixture(scope="module")
+def sharded_steps(tmp_path_factory):
+    """One make_train_step of each case on a 4-rank gloo (2, 2) mesh; each rank's result."""
+    return run_ranks(SHARDED, 4, tmp_path_factory.mktemp("sharded"))
+
+
+@pytest.mark.parametrize("name,layout", SHARDED_CASES)
+def test_sharded_train_step_matches_whole_batch_step(sharded_steps, name, layout):
+    """make_train_step on a (2, 2) mesh against make_train_fn's step on the whole
+    batch: the loss, lr and grad norm, every param and AdamW moment, at this file's
+    bars; every rank reports the same metrics and the same gathered tree."""
+    got = [r[(name, layout)] for r in sharded_steps]
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 2))
+    cfg = rules.pad_config_for_mesh(ARCHS[name].reduced(), mesh, layout)
+    model = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    opt = adamw.init(model)
+    ocfg = adamw.AdamWConfig(**OCFG)
+    _, _, metrics = make_train_fn(cfg, ocfg)(model, opt, _batches(cfg, global_batch=4)[0])
+    for r in got:
+        assert r["metrics"] == got[0]["metrics"] and r["step"] == ((), 1)
+        for key in ("params", "mu", "nu"):
+            assert all(torch.equal(t, got[0][key][n]) for n, t in r[key].items())
+    r = got[0]
+    for k, v in metrics.items():
+        np.testing.assert_allclose(r["metrics"][k], float(v), rtol=TOL, atol=TOL, err_msg=k)
+    clip = min(1.0, ocfg.grad_clip / (float(metrics["grad_norm"]) + 1e-9))
+    noisy = []
+    for n, p in model.named_parameters():
+        g = (opt["mu"][n] / (1 - ocfg.b1)).numpy()  # the whole batch's clipped gradient
+        miss = np.abs(r["params"][n].numpy() - p.detach().numpy()) > PARAM_TOL
+        noisy += [(n, float(x)) for x in g[miss]]
+        for m in ("mu", "nu"):
+            np.testing.assert_allclose(r[m][n].numpy(), opt[m][n].numpy(), atol=MOMENT_TOL, rtol=0, err_msg=f"{m} {n}")
+    assert all(abs(x) < 100 * ocfg.eps for _, x in noisy), [x for x in noisy if abs(x[1]) >= 100 * ocfg.eps]
+    assert len(noisy) <= 1e-3 * sum(p.numel() for p in model.parameters())
+
+
+@pytest.mark.parametrize("name,layout", SHARDED_CASES)
+def test_sharded_train_step_keeps_only_each_ranks_shards(sharded_steps, name, layout):
+    """Between steps each rank holds, of each param and AdamW moment, the shard its
+    placements give: each dim divided by the mesh dims that split it."""
+    sizes = {"data": 2, "model": 2}
+    split_somewhere = False
+    for r in sharded_steps:
+        got = r[(name, layout)]
+        for n, spec in got["specs"].items():
+            full = tuple(got["params"][n].shape)
+            parts = [1] * len(full)
+            for d, entry in enumerate(spec):
+                for axis in entry if isinstance(entry, tuple) else (entry,) if entry else ():
+                    parts[d] *= sizes[axis]
+            want = tuple(f // k for f, k in zip(full, parts))
+            assert got["local"][n][0] == want, (n, spec, got["local"][n])
+            assert got["local_state"]["mu"][n] == got["local_state"]["nu"][n] == want
+            split_somewhere |= want != full
+    assert split_somewhere == (layout == "baseline")

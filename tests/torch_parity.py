@@ -162,3 +162,55 @@ def check_serve(pair, max_len=64, new_tokens=6):
         assert all(len(r.output) == new_tokens for r in done)
         assert eng.cache_mgr.stats() == jeng.cache_mgr.stats()
         assert eng.cache_mgr.stats()["active"] == 0
+
+
+RANK_PREAMBLE = """
+import sys
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=sys.argv[4], rank=rank, world_size=world)
+"""
+RANK_EPILOGUE = """
+torch.save(result, f"{out}/rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+def run_ranks(code: str, world: int, tmp_path, timeout: float = 300) -> list:
+    """Run ``code`` in ``world`` processes of one gloo group, which meet through a
+    file in ``tmp_path`` (no port).  ``code`` sees ``rank``, ``world`` and ``dist``
+    and sets ``result``; returns each rank's ``result``.  Each process runs one
+    thread: the CPU's threaded reductions are not bitwise reproducible from one
+    process to the next."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    import time
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": str(src), "OMP_NUM_THREADS": "1"}
+    script = RANK_PREAMBLE + textwrap.dedent(code) + RANK_EPILOGUE
+    init = f"file://{tmp_path}/rendezvous"
+    logs = [open(f"{tmp_path}/rank{r}.err", "w") for r in range(world)]  # a pipe could fill and block a rank
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(world), str(tmp_path), init],
+                              stdout=subprocess.DEVNULL, stderr=log, env=env)
+             for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:  # a failed rank leaves the others waiting in a collective: stop them all
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.returncode for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    errs = [Path(f"{tmp_path}/rank{r}.err").read_text() for r in range(world)]
+    assert all(p.returncode == 0 for p in procs), "\n".join(e[-2000:] for e in errs)
+    return [torch.load(f"{tmp_path}/rank{r}.pt", weights_only=False) for r in range(world)]
