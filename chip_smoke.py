@@ -40,6 +40,14 @@ with random weights from seed 0, and checks that each went through its kernel:
   tokens (96 + 48 a step, counted by the launcher's ``--metrics-json``), then
   the reduced config killed at its first checkpoint and resumed with
   ``--resume``, ending bitwise where an uninterrupted run ends;
+- the dry-run, ``python -m repro_torch.launch.dryrun``, on this machine's CPU
+  (a fake process group and fake tensors): four full-width cells on the
+  (16, 16) production mesh, one of each step kind (mamba2-780m train_4k,
+  qwen2.5-3b prefill_32k, zamba2-2.7b long_500k, deepseek-moe-16b
+  decode_32k), read back by ``bench_roofline``; then the dry-run of the
+  training cell above on a (1, 1) mesh, whose peak must lie within 25% of
+  the card's ``max_memory_allocated`` in one warm ``make_train_step`` of the
+  same cell, with the step's model-FLOP share;
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -75,9 +83,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+F32_PEAK_FLOPS = 67e12  # H100 SXM data sheet: float32 outside the tensor cores
+
+
+def h100_peaks() -> tuple[float, dict]:
+    """HBM bytes/s and FLOP/s by type: the H100 SXM's data-sheet HBM and bf16 peaks
+    from ``repro_torch.launch.roofline``, with the float32 one it has no use for."""
+    from repro_torch.launch import roofline
+
+    return roofline.HBM_BW, {torch.bfloat16: roofline.PEAK_FLOPS, torch.float32: F32_PEAK_FLOPS}
 
 SERVE_SHAPE = dict(b=4, s=1024, h=48, p=64, g=1, n=128, L=256)  # mamba2-780m prefill
 ZAMBA2_SSD_SHAPE = dict(b=4, s=1024, h=80, p=64, g=1, n=64, L=256)  # zamba2-2.7b forward and prefill
@@ -203,7 +217,8 @@ def ssd_bound(b, s, h, p, g, n, L, dtype):
     nbytes = e * (2 * b * s * h * p + 2 * b * s * g * n) + 4 * (b * s * h + h + b * h * p * n)
     tri = L * (L + 1) // 2
     flops = b * h * (s // L) * 2 * (tri * n + tri * p + 2 * L * p * n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    hbm, peaks = h100_peaks()
+    t_bytes, t_ops = nbytes / hbm, flops / peaks[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
@@ -345,7 +360,8 @@ def fa_bound(b, s, h, kh, d, dtype):
     e = torch.finfo(dtype).bits // 8
     nbytes = e * (2 * b * s * h * d + 2 * b * s * kh * d)
     flops = b * h * (s * (s + 1) // 2) * 4 * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    hbm, peaks = h100_peaks()
+    t_bytes, t_ops = nbytes / hbm, flops / peaks[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
@@ -520,7 +536,7 @@ def merge_bound(g, t) -> tuple[float, int]:
     about 2t comparisons, far below what would set the bound, whatever
     implements it, so the bound is the bytes'."""
     nbytes = 4 * 4 * g * t + 2 * 4 * g * 2 * t
-    return nbytes / HBM_BYTES_S * 1e3, nbytes
+    return nbytes / h100_peaks()[0] * 1e3, nbytes
 
 
 def time_merge(g, t) -> dict:
@@ -1748,6 +1764,142 @@ def phase_launch() -> dict:
             "nvidia_smi": smi()}
 
 
+# one full-width cell of each step kind, over the families that carry a kernel
+DRYRUN_CELLS = (("mamba2-780m", "train_4k"), ("qwen2.5-3b", "prefill_32k"), ("zamba2-2.7b", "long_500k"),
+                ("deepseek-moe-16b", "decode_32k"))
+# the dry-run of phase_train's cell: mamba2-780m, 4 x 1024 tokens, remat, the (1, 1) mesh, as
+# tests/test_sharding_dryrun.py narrows SHAPES and patches make_production_mesh
+DRYRUN_CARD_CELL = """
+import dataclasses, json, torch
+from torch.distributed.device_mesh import DeviceMesh
+import repro_torch.configs.registry as reg
+import repro_torch.launch.dryrun as dr
+dr.fake_group(1)
+mesh = DeviceMesh("cpu", torch.arange(1).reshape(1, 1), mesh_dim_names=("data", "model"))
+dr.make_production_mesh = lambda multi_pod=False, device=None: mesh
+reg.SHAPES["train_4k"] = dataclasses.replace(reg.SHAPES["train_4k"], seq_len={seq_len}, global_batch={global_batch})
+print(json.dumps(dr.run_cell("mamba2-780m", "train_4k", "single")))
+"""
+DRYRUN_MEMORY_BAR = 0.25  # the dry-run's peak against the card's max_memory_allocated, relative
+
+
+def dryrun_ok(row: dict) -> None:
+    rl = row.get("roofline", {})
+    if row.get("status") != "ok" or not all(np.isfinite(v) for v in rl.values() if isinstance(v, float)) \
+            or rl.get("bottleneck") not in ("compute", "memory", "collective"):
+        fail(f"dry-run {row['arch']}/{row['shape']}: {row.get('status')} {row.get('error', '')} {rl}")
+
+
+def dryrun_summary(row: dict) -> dict:
+    rl = row["roofline"]
+    return {"arch": row["arch"], "shape": row["shape"], "mesh": row["mesh"], "devices": row["devices"],
+            "lower_s": row["lower_s"], "trace_s": row["trace_s"],
+            "terms_s": {k: rl[k] for k in ("compute_s", "memory_s", "collective_s")}, "bottleneck": rl["bottleneck"],
+            "traced_over_analytic_flops": rl["traced_flops_per_device"] / rl["flops_per_device"],
+            "traced_wire_bytes": rl["traced_wire_bytes_per_device"], "collectives": rl["collectives"],
+            "memory": row["memory"]}
+
+
+def phase_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun`` as a user runs it, on this machine's
+    CPU (a fake process group, fake tensors, no card): DRYRUN_CELLS on the
+    (16, 16) production mesh at full width, one process each, all at once;
+    every row ``ok`` with finite terms, and ``bench_roofline`` prints a row a
+    cell from them.  Then the one link between the dry-run and the card: the
+    dry-run of phase_train's cell on a (1, 1) mesh, against one warm
+    ``make_train_step`` of the same cell on the card over ``make_host_mesh()``:
+    the card's ``max_memory_allocated`` within DRYRUN_MEMORY_BAR of the
+    dry-run's ``peak_bytes``, and the step's model-FLOP share at the H100's
+    bf16 peak."""
+    import os
+
+    from repro_torch.benchmarks import bench_roofline
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import make_train_step
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                                  "--mesh", "single", "--out", f"{tmp}/{arch}.{shape}.json"], cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for arch, shape in DRYRUN_CELLS]
+        card_cell = subprocess.Popen([sys.executable, "-c", DRYRUN_CARD_CELL.format(**{
+            k: TRAIN_DATA[k] for k in ("seq_len", "global_batch")})], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        rows = []
+        try:
+            for (arch, shape), proc in zip(DRYRUN_CELLS, procs):
+                out, err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    fail(f"dry-run {arch}/{shape} exited {proc.returncode}: {out[-2000:]} {err[-2000:]}")
+                rows += json.loads(Path(f"{tmp}/{arch}.{shape}.json").read_text())
+            card_out, err = card_cell.communicate(timeout=600)
+            if card_cell.returncode != 0:
+                fail(f"dry-run of the card's cell exited {card_cell.returncode}: {err[-3000:]}")
+        finally:
+            for proc in (*procs, card_cell):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall_s = time.perf_counter() - t0
+        for row in rows:
+            dryrun_ok(row)
+        Path(tmp, "dryrun_single.json").write_text(json.dumps(rows))
+        lines: list[str] = []
+        bench_roofline.RESULTS = tmp
+        bench_roofline.main(lines.append)
+    printed = sorted(ln.split(",")[0] for ln in lines if ln.startswith("roofline:"))
+    if printed != sorted(f"roofline:{a}:{s}" for a, s in DRYRUN_CELLS):
+        fail(f"bench_roofline printed {lines}")
+    dry = json.loads(card_out.strip().splitlines()[-1])
+    dryrun_ok(dry)
+
+    # the same cell on the card: one warm step after one to warm up
+    mesh = make_host_mesh()
+    cfg = rules.pad_config_for_mesh(ARCHS["mamba2-780m"], mesh)
+    step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, adamw.AdamWConfig(**TRAIN_OCFG))
+    model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = rules.distribute(dict(model.named_parameters()), pspecs)
+    opt = rules.distribute(adamw.init(model), ospecs)
+    del model
+    batch = cuda_batch(cfg, **TRAIN_DATA)
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t1 = time.perf_counter()
+    _, _, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    card_peak = torch.cuda.max_memory_allocated()
+    launches = kernel_counts()
+    loss = metrics["loss"].item()
+    del params, opt, metrics
+    torch.distributed.destroy_process_group()  # make_host_mesh started it
+    spec = dataclasses.replace(SHAPES["train_4k"], **{k: TRAIN_DATA[k] for k in ("seq_len", "global_batch")})
+    model_flops = roofline.model_flops_for(cfg, spec)
+    dry_peak = dry["memory"]["peak_bytes"]
+    rel = abs(dry_peak - card_peak) / card_peak
+    if rel > DRYRUN_MEMORY_BAR or not np.isfinite(loss) or launches["ssd_scan"] != remat_launches(cfg, cfg.num_layers):
+        fail(f"dry-run against the card: peak {dry_peak} against max_memory_allocated {card_peak} "
+             f"({rel:.3f}, bar {DRYRUN_MEMORY_BAR}), loss {loss}, launches {launches}")
+    return {"phase": "dryrun", "platform": "cpu (fake process group, fake tensors)",
+            "peaks": {"flops": roofline.PEAK_FLOPS, "hbm_bytes_s": roofline.HBM_BW, "link_bytes_s": roofline.LINK_BW},
+            "cells": [dryrun_summary(r) for r in rows], "wall_s": wall_s, "bench_roofline": lines,
+            "card_cell": {"arch": cfg.name, "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]],
+                          "remat": cfg.remat, "mesh": rules.mesh_axes(mesh), "dryrun": dryrun_summary(dry),
+                          "dryrun_peak_bytes": dry_peak, "max_memory_allocated": card_peak,
+                          "peak_rel_diff": rel, "step_ms_warm": step_s * 1e3, "loss": loss, "launches": launches,
+                          "model_flops": model_flops, "model_flop_share": model_flops / (step_s * roofline.PEAK_FLOPS)},
+            "nvidia_smi": smi()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -1799,6 +1951,7 @@ def main() -> None:
     emit(train_zamba2)
     launch = phase_launch()
     emit(launch)
+    emit(phase_dryrun())
     # each kernel's launches in the counted runs of the main paths, by path
     ssd_row["launches_by_path"] = {"mamba2_serve": mamba2_launches,
                                    **{k: v["ssd_scan"] for k, v in hybrid_launches.items()},

@@ -13,7 +13,7 @@ RESULTS = os.path.join(os.path.dirname(__file__), "..", "results")
 def main(emit) -> None:
     path = os.path.join(RESULTS, "dryrun_single.json")
     if not os.path.exists(path):
-        emit("roofline/missing,0,no dry-run in the port yet (ROADMAP.md section 1 item 12) to write results/dryrun_single.json")
+        emit("roofline/missing,0,run `python -m repro_torch.launch.dryrun --all --mesh single --out src/repro_torch/results/dryrun_single.json` first")
         return
     rows = json.load(open(path))
     worst = None

@@ -17,7 +17,11 @@ forward; their backward is the gradient of the plain version, recomputed
 
 ``make_train_step`` is the sharded step over a ``DeviceMesh``: params and
 AdamW state live between steps as DTensors in the placements of
-``repro_torch.sharding.rules``, each rank holding only its shards.  The
+``repro_torch.sharding.rules``, each rank holding only its shards.
+``make_prefill_step`` and ``make_decode_step`` are the serving steps over
+the same placements, with the cache in ``rules.cache_specs``'.  Each rank
+gathers every param whole and runs the model on its rows of the batch, so
+the ranks of one model-axis group compute the same rows (ROADMAP P5).  The
 abstract trees (``abstract_params``, ``abstract_opt_state``,
 ``abstract_cache``) are the same trees on the ``meta`` device.
 """
@@ -28,6 +32,7 @@ import math
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.utils._pytree import tree_map
 
 from repro_torch.convert import STACKED
 from repro_torch.models import get_model
@@ -51,24 +56,30 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat
     return get_model(cfg).init_cache(cfg, batch, max_len, dtype, device="meta")
 
 
-class _LossAndGrad(nn.Module):
-    """``loss(cfg, model, batch)`` and its gradient w.r.t. ``leaves``, as a module's
-    forward: under ``torch.func.functional_call`` the swapped leaves stay in place
-    for the backward too, where ``remat`` recomputes each layer's forward."""
+class _Apply(nn.Module):
+    """``fn(model, *args)`` as a module's forward, so that ``torch.func.functional_call``
+    can run ``fn`` with ``model``'s leaves swapped for others."""
 
-    def __init__(self, cfg: ArchConfig, model: nn.Module, loss):
+    def __init__(self, model: nn.Module, fn):
         super().__init__()
-        self.cfg, self.model, self.loss = cfg, model, loss
+        self.model, self.fn = model, fn
 
-    def forward(self, batch, leaves: list[torch.Tensor]):
-        loss = self.loss(self.cfg, self.model, batch)
-        return loss.detach(), torch.autograd.grad(loss, leaves, materialize_grads=True)
+    def forward(self, *args):
+        return self.fn(self.model, *args)
 
 
 def _loss_and_grad(cfg: ArchConfig, model: nn.Module, loss, leaves: dict[str, torch.Tensor], batch):
-    """(loss, {name: gradient}) of ``loss`` with ``model``'s parameters swapped for ``leaves``."""
-    fn = _LossAndGrad(cfg, model, loss)
-    value, grads = torch.func.functional_call(fn, {f"model.{n}": t for n, t in leaves.items()},
+    """(loss, {name: gradient}) of ``loss`` with ``model``'s parameters swapped for
+    ``leaves``.  The gradient is taken inside the call: there the swapped leaves
+    stay in place for the backward too, where ``remat`` recomputes each layer's
+    forward."""
+
+    def value_and_grad(model, batch, leaves):
+        value = loss(cfg, model, batch)
+        return value.detach(), torch.autograd.grad(value, leaves, materialize_grads=True)
+
+    value, grads = torch.func.functional_call(_Apply(model, value_and_grad),
+                                              {f"model.{n}": t for n, t in leaves.items()},
                                               (batch, list(leaves.values())))
     return value, dict(zip(leaves, grads))
 
@@ -162,6 +173,38 @@ def _shell(cfg: ArchConfig, device_type: str) -> nn.Module:
     return shell
 
 
+def _rows(cfg: ArchConfig, mesh, batch: dict[str, torch.Tensor], layout: str) -> tuple[dict, list]:
+    """This rank's rows of the global ``batch`` (``rules.batch_specs``), and the
+    placements of its ``tokens``."""
+    bspecs = rules.batch_specs(cfg, mesh, batch, layout)
+    rows = {k: distribute_tensor(v.to(mesh.device_type), mesh, rules.to_placements(bspecs[k], mesh),
+                                 src_data_rank=None).to_local() for k, v in batch.items()}
+    return rows, rules.to_placements(bspecs["tokens"], mesh)
+
+
+def _cache_rows(cache, tokens: list) -> list:
+    """The placements of a cache leaf held as this rank's batch rows: the batch
+    (dim 1) split where the tokens' rows are, every other dim whole."""
+    return [Shard(1) if isinstance(pl, Shard) and cache.ndim > 1 else Replicate() for pl in tokens]
+
+
+def _place_cache(cfg: ArchConfig, mesh, local: dict, tokens: list, layout: str) -> dict:
+    """This rank's cache rows as DTensors in ``rules.cache_specs``' placements."""
+    rows = tree_map(lambda t: DTensor.from_local(t, mesh, _cache_rows(t, tokens), run_check=False), local)
+    shardings = rules.to_shardings(mesh, rules.cache_specs(cfg, mesh, rows, layout))
+    return tree_map(lambda t, s: t.redistribute(mesh, s.placements), rows, shardings)
+
+
+def _gather(params: dict[str, DTensor]) -> dict[str, torch.Tensor]:
+    """Every param whole on this rank, keyed for ``functional_call`` of an ``_Apply``.
+    Each leaf is a leaf that requires grad, as a module's parameter is (not a
+    view of the gather's buffer), so that the serving functions take the
+    module's paths through ``matmul`` and give its results bitwise."""
+    with torch.no_grad():
+        full = {f"model.{n}": p.full_tensor() for n, p in params.items()}
+    return {n: t.detach().requires_grad_() if t.is_floating_point() else t for n, t in full.items()}
+
+
 def _reduce_squares(sq: list[torch.Tensor], grads: list[DTensor]) -> torch.Tensor:
     """Each leaf's sum of squares over its whole tensor, from each rank's shard: one
     all-reduce over the mesh dims that split the leaf, per placement pattern."""
@@ -198,9 +241,12 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
       losses and gradients sum to the whole batch's (a MoE's load-balancing
       loss enters as the mean of the ranks' own);
     - the gradients are summed over the mesh dims that split the batch and
-      scattered into the params' placements (``redistribute``: a
+      scattered into the AdamW state's placements (``redistribute``: a
       reduce-scatter), the global grad norm is reduced from the shards, and
-      AdamW updates each rank's shards in place.
+      AdamW updates each rank's shards in place.  The state may lie in other
+      placements than the params (ZeRO-1: the ``dp-only`` specs, as the
+      reference's dry-run sets them): the params' shards are then taken in
+      the state's placements, updated, and gathered back into their own.
 
     ``compress`` and ``accum_steps`` are ``make_train_fn``'s alone.
     """
@@ -216,10 +262,8 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
     dt = getattr(torch, grad_dtype)
 
     def step(params: dict[str, DTensor], opt_state: dict, batch: dict[str, torch.Tensor]):
-        bspecs = rules.batch_specs(cfg, mesh, batch, layout)
-        rows = {k: distribute_tensor(v.to(mesh.device_type), mesh, rules.to_placements(bspecs[k], mesh),
-                                     src_data_rank=None).to_local() for k, v in batch.items()}
-        split = [isinstance(pl, Shard) for pl in rules.to_placements(bspecs["tokens"], mesh)]
+        rows, tokens = _rows(cfg, mesh, batch, layout)
+        split = [isinstance(pl, Shard) for pl in tokens]
         partial = [Partial() if s else Replicate() for s in split]
         shards = math.prod(mesh.size(i) for i, s in enumerate(split) if s)
         count = (batch["labels"] >= 0).to(torch.float32).sum().to(mesh.device_type).clamp(min=1.0)
@@ -235,15 +279,19 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
         del full, leaves
         with torch.no_grad():
             loss = DTensor.from_local(loss, mesh, partial).full_tensor()
-            sharded = [DTensor.from_local(grads.pop(n), mesh, partial).redistribute(mesh, p.placements)
-                       for n, p in params.items()]
+            into = {n: opt_state["mu"][n].placements for n in params}
+            sharded = [DTensor.from_local(grads.pop(n), mesh, partial).redistribute(mesh, into[n]) for n in params]
             local = [g.to_local() for g in sharded]
             gnorm = _reduce_squares([g.to(torch.float32).square().sum() for g in local], sharded).sum().sqrt()
             state = {"mu": {n: t.to_local() for n, t in opt_state["mu"].items()},
                      "nu": {n: t.to_local() for n, t in opt_state["nu"].items()},
                      "step": opt_state["step"].to_local()}
+            held = {n: p if p.placements == into[n] else p.redistribute(mesh, into[n]) for n, p in params.items()}
             metrics = adamw.update(ocfg, dict(zip(params, local)), state,
-                                   {n: p.to_local() for n, p in params.items()}, grad_norm=gnorm)
+                                   {n: p.to_local() for n, p in held.items()}, grad_norm=gnorm)
+            for n, p in params.items():
+                if held[n] is not p:  # ZeRO-1: gather the updated shards back into the params' placements
+                    p.to_local().copy_(held[n].redistribute(mesh, p.placements).to_local())
         metrics["loss"] = loss
         return params, opt_state, metrics
 
@@ -268,3 +316,55 @@ def make_decode_fn(cfg: ArchConfig):
         return next_tok, new_cache
 
     return serve_step
+
+
+def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, *, layout: str = "baseline"):
+    """``make_prefill_fn`` sharded over ``mesh`` (the reference jits it with the
+    params in their shardings and the cache out in ``rules.cache_specs``');
+    returns ``(step, params_shape, pspecs)``.
+
+    ``step(params, batch)`` takes params as DTensors in ``pspecs`` and the
+    global batch.  Each rank gathers every param whole (``full_tensor``) and
+    prefills its rows of the batch (``rules.batch_specs``).  It returns the
+    last-position logits as a DTensor split like the tokens' rows, and the
+    cache as DTensors in ``rules.cache_specs``' placements."""
+    params_shape = abstract_params(cfg)
+    pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
+    run = _Apply(_shell(cfg, mesh.device_type), make_prefill_fn(cfg, max_len))
+
+    def step(params: dict[str, DTensor], batch: dict[str, torch.Tensor]):
+        rows, tokens = _rows(cfg, mesh, batch, layout)
+        full = _gather(params)
+        logits, cache = torch.func.functional_call(run, full, (rows,))
+        del full
+        return (DTensor.from_local(logits, mesh, tokens, run_check=False),
+                _place_cache(cfg, mesh, cache, tokens, layout))
+
+    return step, params_shape, pspecs
+
+
+def make_decode_step(cfg: ArchConfig, mesh, *, layout: str = "baseline"):
+    """``make_decode_fn`` sharded over ``mesh``; returns ``(step, params_shape,
+    pspecs)``.
+
+    ``step(params, cache, tokens)`` takes params as DTensors in ``pspecs``,
+    the cache as DTensors in ``rules.cache_specs``' placements and the
+    global (B, 1) tokens.  Each rank gathers every param whole and its batch
+    rows of every cache leaf (a sequence-sharded K/V or a head-sharded SSM
+    state becomes whole on the rank), and decodes its rows.  It returns the
+    next tokens as a DTensor split like the tokens' rows, and the new cache
+    scattered back into ``rules.cache_specs``' placements."""
+    params_shape = abstract_params(cfg)
+    pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
+    run = _Apply(_shell(cfg, mesh.device_type), make_decode_fn(cfg))
+
+    def step(params: dict[str, DTensor], cache: dict, tokens: torch.Tensor):
+        rows, placements = _rows(cfg, mesh, {"tokens": tokens}, layout)
+        local = tree_map(lambda t: t.redistribute(mesh, _cache_rows(t, placements)).to_local(), cache)
+        full = _gather(params)
+        next_tok, new_cache = torch.func.functional_call(run, full, (local, rows["tokens"]))
+        del full, local
+        return (DTensor.from_local(next_tok, mesh, placements, run_check=False),
+                _place_cache(cfg, mesh, new_cache, placements, layout))
+
+    return step, params_shape, pspecs

@@ -31,7 +31,7 @@ CHANGED = {
     ],
     "bench_roofline": [
         ("run `python -m repro_torch.launch.dryrun --all --mesh single --out results/dryrun_single.json` first",
-         "no dry-run in the port yet (ROADMAP.md section 1 item 12) to write results/dryrun_single.json"),
+         "run `python -m repro_torch.launch.dryrun --all --mesh single --out src/repro_torch/results/dryrun_single.json` first"),
     ],
 }
 
