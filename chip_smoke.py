@@ -48,6 +48,13 @@ with random weights from seed 0, and checks that each went through its kernel:
   training cell above on a (1, 1) mesh, whose peak must lie within 25% of
   the card's ``max_memory_allocated`` in one warm ``make_train_step`` of the
   same cell, with the step's model-FLOP share;
+- tensor parallelism (``phase_tp``): two processes on the card as the (1, 2)
+  mesh, a ``gloo`` group over CUDA tensors (probed first): ``ssd_scan`` and
+  ``flash_attention`` held against their plain versions at one rank's local
+  shapes; f32 twins of mamba2-780m, qwen2.5-3b (flash) and zamba2-2.7b, depth
+  cut, whose prefill and ``make_train_step`` on the (1, 2) mesh match the
+  (1, 1) mesh's; and mamba2-780m at full width and depth taking one warm
+  step per rank (96 ``ssd_scan`` launches on 24 of its 48 heads);
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -1900,6 +1907,295 @@ def phase_dryrun() -> dict:
             "nvidia_smi": smi()}
 
 
+TP_SIZE = 2  # the (1, 2) mesh of phase_tp: two ranks on the one card
+TP_SSD_SHAPE = {**SERVE_SHAPE, "h": SERVE_SHAPE["h"] // TP_SIZE}  # mamba2-780m's scan on one rank's 24 heads
+TP_FA_SHAPE = {**FA_FORWARD_SHAPE, "h": FA_FORWARD_SHAPE["h"] // TP_SIZE, "kh": FA_FORWARD_SHAPE["kh"] // TP_SIZE}
+TP_TWIN_DATA = dict(seq_len=512, global_batch=2, seed=1)  # the f32 twins' batch, as check_train_f32's
+# (arch, layers, attention_impl) of each f32 twin: zamba2 keeps the 6 layers that reach its shared block
+TP_TWINS = (("mamba2-780m", TRAIN_RESTART_LAYERS, "xla"), ("qwen2.5-3b", TRAIN_RESTART_LAYERS, "flash"),
+            ("zamba2-2.7b", ZAMBA2_TRAIN_LAYERS, "flash"))
+TP_GRAD_BAR = 1e-3  # each leaf's gradient and each prefill leaf, of the leaf's largest; phase_train's bars
+
+
+def tp_twin_cfg(name: str, layers: int, impl: str):
+    """The f32 twin of ``name`` at ``layers``, padded for the (1, 2) mesh; the (1, 1)
+    reference runs the same config, so that both hold leaves of one shape."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.sharding import rules
+
+    cfg = dataclasses.replace(ARCHS[name], num_layers=layers, compute_dtype="float32", attention_impl=impl)
+    return rules.pad_config_for_mesh(cfg, types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, TP_SIZE)))
+
+
+def tp_whole(t) -> torch.Tensor:
+    """A DTensor's whole value on this rank, gathered through ``sharding/tp.py``'s
+    all-gather, which a ``gloo`` group takes on CUDA tensors (DTensor's own, the
+    functional op, ends the process on them)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.sharding import tp
+
+    local, mesh = t.to_local(), t.device_mesh
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and mesh.size(i) > 1:
+            local = tp._all_gather(local, pl.dim, tp.Group(mesh.get_group(i), mesh.get_local_rank(i), mesh.size(i)))
+    return local
+
+
+def tp_twin_run(cfg, mesh) -> dict:
+    """A prefill of TP_TWIN_DATA's tokens, then one make_train_step on the batch, over
+    ``mesh``, from seed 0's params: the logits and every cache leaf (each rank's
+    whole view), the metrics, the gradients AdamW was given (this rank's shards)
+    and each kernel's launches and plain backwards in the step."""
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import make_prefill_step, make_train_step
+
+    ocfg = adamw.AdamWConfig(**TRAIN_OCFG)
+    batch = cuda_batch(cfg, **TP_TWIN_DATA)
+    model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, ocfg)
+    params = rules.distribute(dict(model.named_parameters()), pspecs)
+    opt = rules.distribute(adamw.init(model), ospecs)
+    del model
+    prefill, _, _ = make_prefill_step(cfg, mesh, TP_TWIN_DATA["seq_len"])
+    logits, cache = prefill(params, {"tokens": batch["tokens"]})
+    flat = {"logits": tp_whole(logits)}
+    flat.update({f"cache/{k}": tp_whole(v) for k, v in cache.items() if not isinstance(v, dict)})
+    flat.update({f"cache/ssm/{k}": tp_whole(v) for k, v in cache.get("ssm", {}).items()})
+    del logits, cache
+    update, seen = adamw.update, {}
+
+    def spy(c, grads, state, p, **kw):
+        seen.update(grads)
+        return update(c, grads, state, p, **kw)
+
+    adamw.update = spy
+    try:
+        zero_counts()
+        _, _, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+    finally:
+        adamw.update = update
+    return {"serve": flat, "metrics": {k: v.item() for k, v in metrics.items()}, "grads": dict(seen),
+            "launches": counts, "specs": {n: s.spec for n, s in pspecs.items()}}
+
+
+# one rank of phase_tp's (1, 2) mesh: argv = rank, port, directory of the (1, 1) references
+TP_RANK = r"""
+import dataclasses, json, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+
+rank, port, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=cs.TP_SIZE)
+from repro_torch.sharding import tp
+
+# the collectives the TP path issues, as it issues them, on CUDA tensors
+out = {"rank": rank, "probe": {}}
+world = tp.Group(dist.group.WORLD, rank, cs.TP_SIZE)
+x = torch.full((2, 2), float(rank + 1), device="cuda")
+for name, fn in (("all_reduce", lambda: tp._all_reduce(x, world)),
+                 ("all_reduce_max", lambda: tp._all_reduce(x, world, "max")),
+                 ("all_gather", lambda: tp._all_gather(x, -1, world))):
+    print(f"rank {rank}: probe {name}", file=sys.stderr, flush=True)
+    try:
+        got = fn()
+        out["probe"][name] = [got.device.type, got.cpu().tolist()]
+    except Exception as e:
+        out["probe"][name] = f"refused: {type(e).__name__}: {e}"[:300]
+want = {"all_reduce": ["cuda", [[3.0] * 2] * 2], "all_reduce_max": ["cuda", [[2.0] * 2] * 2],
+        "all_gather": ["cuda", [[1.0, 1.0, 2.0, 2.0]] * 2]}
+if out["probe"] != want:
+    print(json.dumps(out), flush=True)
+    sys.exit(3)
+
+from repro_torch.configs import ARCHS
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import get_model
+from repro_torch.optim import adamw
+from repro_torch.sharding import rules
+from repro_torch.train.step import make_train_step
+
+mesh = make_host_mesh(model=cs.TP_SIZE, device="cuda")
+out["mesh"] = rules.mesh_axes(mesh)
+heads = []
+ssd_scan, flash = ssd_ops.ssd_scan, fa_ops.flash_attention
+
+
+def spy_ssd(x, dt, a, b, c, chunk):
+    heads.append(("ssd_scan", x.shape[2], str(x.dtype)))
+    return ssd_scan(x, dt, a, b, c, chunk=chunk)
+
+
+def spy_flash(q, k, v, window=0):
+    heads.append(("flash_attention", q.shape[2], k.shape[2], str(q.dtype)))
+    return flash(q, k, v, window=window)
+
+
+ssd_ops.ssd_scan, fa_ops.flash_attention = spy_ssd, spy_flash
+
+# (b) the f32 twins against the (1, 1) mesh's step
+twins = {}
+for name, layers, impl in cs.TP_TWINS:
+    print(f"rank {rank}: twin {name}", file=sys.stderr, flush=True)
+    cfg = cs.tp_twin_cfg(name, layers, impl)
+    heads.clear()
+    got = cs.tp_twin_run(cfg, mesh)
+    ref = torch.load(f"{tmp}/{name}.pt", map_location="cpu", mmap=True)
+    worst = {}
+    for n, g in got["grads"].items():
+        whole = ref["grads"][n]
+        shard = rules.model_shard(got["specs"][n], tuple(whole.shape), mesh)
+        want_g = (whole if shard is None else whole.narrow(*shard)).to("cuda")
+        worst[n] = ((g - want_g).abs().max() / want_g.abs().max().clamp(min=1e-30)).item()
+    serve = {k: ((v - ref["serve"][k].to("cuda")).abs().max() / ref["serve"][k].abs().max().clamp(min=1e-30)).item()
+             for k, v in got["serve"].items()}
+    m, rm = got["metrics"], ref["metrics"]
+    twins[name] = {"layers": layers, "attention_impl": impl, "loss": [m["loss"], rm["loss"]],
+                   "loss_rel": abs(m["loss"] - rm["loss"]) / abs(rm["loss"]),
+                   "grad_norm_rel": abs(m["grad_norm"] - rm["grad_norm"]) / rm["grad_norm"],
+                   "grad_rel_max": max(worst.values()), "grad_rel_worst_leaf": max(worst, key=worst.get),
+                   "split_leaves": sum(rules.model_dim(s) is not None for s in got["specs"].values()),
+                   "prefill_rel": serve, "launches": got["launches"], "launches_1x1": ref["launches"],
+                   "heads": sorted(set(map(tuple, heads)))}
+    del got, ref
+    torch.cuda.empty_cache()
+out["twins"] = twins
+
+# (a) mamba2-780m at full width and depth, bf16, remat: one step to warm, one measured
+print(f"rank {rank}: full width", file=sys.stderr, flush=True)
+cfg = rules.pad_config_for_mesh(ARCHS["mamba2-780m"], mesh)
+step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, adamw.AdamWConfig(**cs.TRAIN_OCFG))
+model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+params = rules.distribute(dict(model.named_parameters()), pspecs)
+opt = rules.distribute(adamw.init(model), ospecs)
+del model
+batch = cs.cuda_batch(cfg, **cs.TRAIN_DATA)
+step(params, opt, batch)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+heads.clear()
+cs.zero_counts()
+t0 = time.perf_counter()
+_, _, metrics = step(params, opt, batch)
+torch.cuda.synchronize()
+out["full"] = {"step_ms_gloo": (time.perf_counter() - t0) * 1e3, "launches": cs.kernel_counts(),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "metrics": {k: v.item() for k, v in metrics.items()}, "heads": sorted(set(map(tuple, heads))),
+               "local_bytes": sum(p.to_local().numel() * p.to_local().element_size() for p in params.values()),
+               "params": sum(p.numel() for p in params.values())}
+print(json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def phase_tp() -> dict:
+    """Tensor parallelism over the model axis (``sharding/tp.py``, ROADMAP P5) on the
+    card: two processes on the one H100 as the (1, 2) mesh ("data" 1, "model" 2).
+    NCCL refuses two ranks on one device, so the group is ``gloo`` over CUDA
+    tensors, which stages every collective through host memory: the step times
+    here are not a measure of TP's speed.  Each rank first probes that gloo's
+    all-reduce (sum, max) and all-gather take CUDA tensors; a refusal fails the
+    phase.
+
+    (c) the kernels at the ranks' local shapes, against their plain versions at
+    the kernel bars: ``ssd_scan`` at mamba2-780m's 24 heads a rank and
+    ``flash_attention`` at qwen2.5-3b's 8 q heads over 1 kv head, with their
+    times and bounds.  (b) f32 twins, full width, depth cut (TP_TWINS): a
+    prefill and one ``make_train_step`` on the (1, 2) mesh against the same on
+    the (1, 1) mesh (this process, ``make_host_mesh()``): loss 1e-4 rel., grad
+    norm 1e-3 rel., each leaf's gradient (each rank's shard) and each prefill
+    leaf within TP_GRAD_BAR of its largest.  (a) mamba2-780m at full width and
+    depth, bf16, ``remat`` on, 4 x 1024 tokens: one warm ``make_train_step``
+    per rank, 96 ``ssd_scan`` launches (48 layers, forward and recompute) on
+    24 heads and 48 plain backwards, each rank's ``max_memory_allocated``."""
+    import os
+    import socket
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs["ssd_scan", dtype] = check_ssd(TP_SSD_SHAPE, dtype, seed=11)
+        errs["flash_attention", dtype] = check_fa(TP_FA_SHAPE, dtype, seed=12)[0]
+    kernels = {"ssd_scan": {"shape": TP_SSD_SHAPE, **{str(dt).split(".")[1]: {"max_abs_err": errs["ssd_scan", dt], **t}
+                                                     for dt, t in time_ssd(TP_SSD_SHAPE).items()}},
+               "flash_attention": {"shape": TP_FA_SHAPE,
+                                   **{str(dt).split(".")[1]: {"max_abs_err": errs["flash_attention", dt], **t}
+                                      for dt, t in time_fa(TP_FA_SHAPE).items()}}}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = make_host_mesh()  # the (1, 1) reference
+        for name, layers, impl in TP_TWINS:
+            ref = tp_twin_run(tp_twin_cfg(name, layers, impl), mesh)
+            torch.save({k: ref[k] for k in ("serve", "metrics", "launches")}
+                       | {"grads": {n: g.cpu() for n, g in ref["grads"].items()}}, f"{tmp}/{name}.pt")
+            del ref
+            torch.cuda.empty_cache()
+        torch.distributed.destroy_process_group()  # make_host_mesh started it
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", TP_RANK, str(r), str(port), tmp], cwd=ROOT, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(TP_SIZE)]
+        ranks = []
+        try:
+            for r, proc in enumerate(procs):
+                out, err = proc.communicate(timeout=900)
+                lines = out.strip().splitlines()
+                if proc.returncode != 0:
+                    fail(f"phase_tp rank {r} exited {proc.returncode}: {lines[-1:] if lines else ''} {err[-3000:]}")
+                ranks.append(json.loads(lines[-1]))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall_s = time.perf_counter() - t0
+
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["mamba2-780m"]
+    for r in ranks:
+        for name, twin in r["twins"].items():
+            if twin["loss_rel"] > 1e-4 or twin["grad_norm_rel"] > 1e-3 or twin["grad_rel_max"] > TP_GRAD_BAR \
+                    or max(twin["prefill_rel"].values()) > TP_GRAD_BAR:
+                fail(f"phase_tp rank {r['rank']} f32 twin {name}: {twin} (bars: loss 1e-4, grad norm 1e-3, "
+                     f"grads and prefill {TP_GRAD_BAR})")
+            tcfg = ARCHS[name]
+            local = {"ssd_scan": tcfg.ssm_num_heads // TP_SIZE if tcfg.ssm_state else None,
+                     "flash_attention": tcfg.num_heads // TP_SIZE if twin["attention_impl"] == "flash" else None}
+            # each rank launches each kernel as often as the (1, 1) step, on its own heads
+            idle = any(twin["launches"][k][0] == 0 for k, h in local.items() if h)
+            if twin["launches"] != twin["launches_1x1"] or idle or any(h[1] != local[h[0]] for h in twin["heads"]):
+                fail(f"phase_tp rank {r['rank']} {name}: launches {twin['launches']}, on (1, 1) "
+                     f"{twin['launches_1x1']}, heads {twin['heads']}, expected {local}")
+        full = r["full"]
+        want = {"ssd_scan": remat_launches(cfg, cfg.num_layers), "flash_attention": [0, 0]}
+        if full["launches"] != want or full["heads"] != [["ssd_scan", cfg.ssm_num_heads // TP_SIZE, "torch.bfloat16"]] \
+                or not np.isfinite(full["metrics"]["loss"]) or full["metrics"] != ranks[0]["full"]["metrics"]:
+            fail(f"phase_tp rank {r['rank']} full-width step: {full}, expected launches {want}")
+    return {"phase": "tp", "mesh": ranks[0]["mesh"], "backend": "gloo over CUDA tensors (two ranks on one card)",
+            "probe": ranks[0]["probe"], "kernels_at_local_shapes": kernels,
+            "twins": {r["rank"]: r["twins"] for r in ranks},
+            "full": {"arch": cfg.name, "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]],
+                     "remat": cfg.remat,
+                     "note": "step_ms_gloo stages every collective through host memory: not TP's speed",
+                     **{r["rank"]: r["full"] for r in ranks}},
+            "wall_s": wall_s, "nvidia_smi": smi()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -1952,6 +2248,8 @@ def main() -> None:
     launch = phase_launch()
     emit(launch)
     emit(phase_dryrun())
+    tp = phase_tp()
+    emit(tp)
     # each kernel's launches in the counted runs of the main paths, by path
     ssd_row["launches_by_path"] = {"mamba2_serve": mamba2_launches,
                                    **{k: v["ssd_scan"] for k, v in hybrid_launches.items()},
@@ -1960,8 +2258,14 @@ def main() -> None:
     fa_row["launches_by_path"] = {"qwen2.5-3b_forward": dense_launches,
                                   **{k: v["flash_attention"] for k, v in hybrid_launches.items()},
                                   **{k: v["flash_attention"][0] for k, v in train_launches.items()}}
+    # the tensor-parallel paths, per rank of the (1, 2) mesh: the full-width mamba2 step and the f32 twins
+    for rank, twins in tp["twins"].items():
+        ssd_row["launches_by_path"][f"mamba2_tp_train_rank{rank}"] = tp["full"][rank]["launches"]["ssd_scan"][0]
+        for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row)):
+            row["launches_by_path"][f"tp_twins_rank{rank}"] = sum(t["launches"][name][0] for t in twins.values())
     for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row)):  # the plain recomputes in training
         row["backwards_by_path"] = {k: v[name][1] for k, v in train_launches.items()}
+        row["tp_local_shape"] = tp["kernels_at_local_shapes"][name]
     ssd_row["train_plain_backward"] = train["plain_backward"]
     for row in (ssd_row, fa_row):
         row["launches"] = sum(row["launches_by_path"].values())

@@ -7,6 +7,14 @@ layouts (``embed`` as (V, D), ``unembed`` as (D, V), ``scale``, ``wq`` as
 (D, H, hd), ``wo`` as (H, hd, D)), so that ``convert.load_jax_params`` maps
 the reference's param tree 1:1.  The functions take the config and the
 module, as the reference's take the config and the param tree.
+
+Tensor parallelism (``sharding/tp.py``): a sharded step sets ``tp_group`` on
+the ``Attention``, ``MLP`` and ``Embedding`` modules it runs
+(``train/step.py``) and hands each its model-axis shards: q heads (and kv
+heads where they divide the axis), FFN hidden columns and vocabulary rows.
+The layer then computes only those and joins the partial results over the
+group.  With ``tp_group`` None (every module ``init_params`` builds) each
+function runs the ops it ran before.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import tp
 from .config import ArchConfig
 
 
@@ -51,11 +60,26 @@ def rmsnorm_init(dim: int, dtype, device) -> RMSNorm:
 
 
 def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    return _rms(x, params.scale, eps)
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     xf = x.to(torch.float32)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * params.scale.to(torch.float32)).to(dt)
+    return (y * scale.to(torch.float32)).to(dt)
+
+
+def rmsnorm_split(params: RMSNorm, x: torch.Tensor, eps: float, g: tp.Group) -> torch.Tensor:
+    """``rmsnorm`` over a dim that the model axis splits: ``x`` is this rank's part
+    of it and ``params.scale`` the whole (replicated) leaf.  The sum of squares is
+    reduced over the group before it scales."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = tp.all_reduce(xf.square().sum(dim=-1, keepdim=True), g) / (xf.shape[-1] * g.size)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * tp.part(params.scale, 0, g).to(torch.float32)).to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -113,6 +137,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 # ----------------------------------------------------------------- attention
 class Attention(nn.Module):
+    tp_group: tp.Group | None = None
+
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
@@ -144,18 +170,36 @@ def attention_init(cfg: ArchConfig, generator: torch.Generator, device) -> Atten
     return Attention(cfg, generator, device)
 
 
-def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor | None):
+def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor | None, *,
+                 whole_kv: bool = False):
+    """q, k and v of ``x``.  Under TP: this rank's q heads, and its kv heads where the
+    kv heads divide the group, else (``wk``/``wv`` replicated) the span of kv heads
+    its q heads read (``kv_heads_read``), or all of them with ``whole_kv``."""
     cd = _dtype(cfg.compute_dtype)
+    g = p.tp_group
+    wk, wv = p.wk, p.wv
+    bk, bv = (p.bk, p.bv) if cfg.qkv_bias else (None, None)
+    qs, ks = (p.q_norm.scale, p.k_norm.scale) if cfg.qk_norm else (None, None)
+    if g is not None:
+        x = tp.copy(x, g)
+        qs, ks = (None, None) if qs is None else (tp.copy(qs, g), tp.copy(ks, g))
+        if cfg.num_kv_heads % g.size:
+            wk, wv = tp.copy(wk, g), tp.copy(wv, g)
+            bk, bv = (None, None) if bk is None else (tp.copy(bk, g), tp.copy(bv, g))
+            if not whole_kv:
+                _, lo, kl = kv_heads_read(cfg, g)
+                wk, wv = wk[:, lo:lo + kl], wv[:, lo:lo + kl]
+                bk, bv = (None, None) if bk is None else (bk[lo:lo + kl], bv[lo:lo + kl])
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, wk.to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, wv.to(cd))
     if cfg.qkv_bias:
         q = q + p.bq.to(cd)
-        k = k + p.bk.to(cd)
-        v = v + p.bv.to(cd)
+        k = k + bk.to(cd)
+        v = v + bv.to(cd)
     if cfg.qk_norm:
-        q = rmsnorm(p.q_norm, q, cfg.norm_eps)
-        k = rmsnorm(p.k_norm, k, cfg.norm_eps)
+        q = _rms(q, qs, cfg.norm_eps)
+        k = _rms(k, ks, cfg.norm_eps)
     if positions is not None:
         cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -175,6 +219,30 @@ def kv_head_map(num_q_heads: int, num_kv_heads: int, orig_q_heads: int = 0) -> t
     oq = orig_q_heads or num_q_heads
     group = max(1, oq // num_kv_heads)
     return torch.clamp(torch.arange(num_q_heads) // group, max=num_kv_heads - 1)
+
+
+def kv_heads_read(cfg: ArchConfig, g: tp.Group) -> tuple[torch.Tensor, int, int]:
+    """Under TP, (this rank's q heads' map into the kv heads it reads, the first of
+    those kv heads, their count).  Where the kv heads divide the group those are the
+    rank's own K/tp; else the span of the replicated K that its q heads read
+    (qwen2.5-3b's 2 kv heads at tp = 4: one each)."""
+    hl, kh = cfg.num_heads // g.size, cfg.num_kv_heads
+    if kh % g.size == 0:
+        kl = kh // g.size
+        lo = g.rank * kl
+    else:  # kv_head_map's arithmetic on ints (it rises with the q head), so that no tensor is read back
+        group = max(1, (cfg.orig_num_heads or cfg.num_heads) // kh)
+        lo, hi = (min(h // group, kh - 1) for h in (g.rank * hl, (g.rank + 1) * hl - 1))
+        kl = hi - lo + 1
+    return kv_head_map(cfg.num_heads, kh, cfg.orig_num_heads)[g.rank * hl:(g.rank + 1) * hl] - lo, lo, kl
+
+
+def kv_map(cfg: ArchConfig, g: tp.Group | None) -> torch.Tensor:
+    """An attention layer's q-head -> kv-head map on the CPU, over the heads this rank
+    computes: ``kv_head_map``, or under TP ``kv_heads_read``'s."""
+    if g is None:
+        return kv_head_map(cfg.num_heads, cfg.num_kv_heads, cfg.orig_num_heads)
+    return kv_heads_read(cfg, g)[0]
 
 
 def _sdpa(cfg: ArchConfig, q, k, v, kvm: torch.Tensor, *, causal: bool, q_offset: int = 0, window: int = 0):
@@ -202,9 +270,11 @@ def _sdpa(cfg: ArchConfig, q, k, v, kvm: torch.Tensor, *, causal: bool, q_offset
     return torch.einsum("bhqs,bshd->bqhd", probs, vr)
 
 
-def _check_flash_heads(cfg: ArchConfig, h: int, kh: int) -> None:
-    """The kernel reads kv head h // (H/K); refuse a config whose kv_head_map differs."""
-    if h % kh or not torch.equal(kv_head_map(h, kh, cfg.orig_num_heads), torch.arange(h) // (h // kh)):
+def _check_flash_heads(cfg: ArchConfig, kvm: torch.Tensor, kh: int) -> None:
+    """The kernel reads kv head h // (H/K) of the H q heads and K kv heads it is
+    given; refuse a layer whose q-head -> kv-head map ``kvm`` differs."""
+    h = kvm.numel()
+    if h % kh or not torch.equal(kvm, torch.arange(h) // (h // kh)):
         raise ValueError(
             f"attention_impl='flash' with {h} q heads ({cfg.orig_num_heads or h} unpadded) over {kh} kv "
             "heads: the kernel's map h // (H/K) differs from kv_head_map (ROADMAP.md §3, fault (c)); "
@@ -220,11 +290,31 @@ def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.T
     if cfg.attention_impl == "flash" and causal:
         from ..kernels.flash_attention import ops as fa_ops
 
-        _check_flash_heads(cfg, q.shape[2], k.shape[2])
+        _check_flash_heads(cfg, kv_map(cfg, p.tp_group), k.shape[2])
         out = fa_ops.flash_attention(q, k, v, window=cfg.sliding_window)
     else:
         out = _sdpa(cfg, q, k, v, p.kvm, causal=causal, window=cfg.sliding_window)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd))
+    return tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), p.tp_group)
+
+
+def attention_prefill(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                      positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal attention on the plain path, as prefill runs it: (output, k, v) with
+    k and v over every kv head, for the cache.  Under TP the rank attends with its
+    own heads, and k and v are gathered over the group (or computed whole where
+    they are replicated)."""
+    cd = _dtype(cfg.compute_dtype)
+    g = p.tp_group
+    q, k, v = _project_qkv(cfg, p, x.to(cd), positions, whole_kv=True)
+    ka, va = k, v
+    if g is not None and cfg.num_kv_heads % g.size:
+        _, lo, kl = kv_heads_read(cfg, g)
+        ka, va = k[:, :, lo:lo + kl], v[:, :, lo:lo + kl]
+    out = _sdpa(cfg, q, ka, va, p.kvm, causal=True, window=cfg.sliding_window)
+    y = tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), g)
+    if g is not None and cfg.num_kv_heads % g.size == 0:
+        k, v = tp.gather(k, 2, g), tp.gather(v, 2, g)
+    return y, k, v
 
 
 def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor],
@@ -233,8 +323,11 @@ def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict
 
     cache = {"k": (B, Smax, K, D), "v": same}; pos: the current length.  The
     new K/V row is written into ``cache`` in place (the reference returns
-    updated copies); ``decode_step`` hands each layer a fresh copy.
+    updated copies); ``decode_step`` hands each layer a fresh copy.  Not under
+    TP: a sharded K/V decode is ROADMAP P5's remainder.
     """
+    if p.tp_group is not None:
+        raise NotImplementedError("decode with a K/V cache under tensor parallelism (ROADMAP P5b)")
     cd = _dtype(cfg.compute_dtype)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(cfg, p, x.to(cd), positions)
@@ -269,6 +362,8 @@ def cross_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
 class MLP(nn.Module):
     """SwiGLU: ``down(silu(x @ gate) * (x @ up))``."""
 
+    tp_group: tp.Group | None = None
+
     def __init__(self, d_model: int, d_ff: int, dtype, generator: torch.Generator, device):
         super().__init__()
         s_in, s_out = d_model**-0.5, d_ff**-0.5
@@ -283,10 +378,10 @@ def mlp_init(d_model: int, d_ff: int, dtype, generator: torch.Generator, device)
 
 def mlp(p: MLP, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     cd = _dtype(compute_dtype)
-    x = x.to(cd)
+    x = tp.copy(x.to(cd), p.tp_group)
     g = x @ p.gate.to(cd)
     u = x @ p.up.to(cd)
-    return (F.silu(g) * u) @ p.down.to(cd)
+    return tp.reduce((F.silu(g) * u) @ p.down.to(cd), p.tp_group)
 
 
 class GeluMLP(nn.Module):
@@ -313,6 +408,8 @@ def gelu_mlp(p: GeluMLP, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
 
 # ----------------------------------------------------------------- embedding
 class Embedding(nn.Module):
+    tp_group: tp.Group | None = None
+
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
         super().__init__()
         dt = _dtype(cfg.param_dtype)
@@ -329,10 +426,18 @@ def embedding_init(cfg: ArchConfig, generator: torch.Generator, device) -> Embed
 
 
 def embed(cfg: ArchConfig, p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    if p.tp_group is not None:
+        return tp.embed_lookup(p.embed, tokens, _dtype(cfg.compute_dtype), p.tp_group)
     return p.embed[tokens].to(_dtype(cfg.compute_dtype))
 
 
 def unembed(cfg: ArchConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the vocabulary; under TP over this rank's V/tp columns (``vocab_logits`` gathers them)."""
     cd = _dtype(cfg.compute_dtype)
     w = p.unembed if p.unembed is not None else p.embed.T
-    return x.to(cd) @ w.to(cd)
+    return tp.copy(x.to(cd), p.tp_group) @ w.to(cd)
+
+
+def vocab_logits(cfg: ArchConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
+    """``unembed`` over the whole vocabulary, gathered over the group under TP."""
+    return tp.gather(unembed(cfg, p, x), -1, p.tp_group)

@@ -14,6 +14,14 @@ The chunked scan is ``repro_torch.kernels.ssd_scan.ops.ssd_scan``: the CUDA
 kernel on the card, the plain reference on the CPU.  Decode keeps a
 constant-size recurrent state (B, H, P, N) plus a (conv_width-1)-deep conv
 cache of the pre-conv (x|B|C) inputs.
+
+Under tensor parallelism (``tp_group`` set by a sharded step, ``sharding/tp.py``)
+the mixer holds its model-axis shards of ``wz``, ``wx``, ``wdt``, ``conv_x``,
+``a_log``, ``dt_bias``, ``d_skip`` and ``out_proj`` and runs the scan on its
+H/tp heads; ``wb``, ``wc`` and the B/C convs stay replicated, and the gated
+norm reduces its sum of squares over the group.  The decode state holds the
+rank's heads; the conv cache stays whole, and the rank reads its x channels
+from it and gathers the x part it writes back.
 """
 from __future__ import annotations
 
@@ -22,8 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssd_scan import ops as ssd_ops
+from ..sharding import tp
 from .config import ArchConfig
-from .layers import _dtype, _normal, _param, rmsnorm, rmsnorm_init
+from .layers import _dtype, _normal, _param, rmsnorm, rmsnorm_init, rmsnorm_split
 
 
 def _causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -50,6 +59,8 @@ def ssm_init_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict[str, torc
 
 
 class Mamba2Mixer(nn.Module):
+    tp_group: tp.Group | None = None
+
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
         super().__init__()
         self.cfg = cfg
@@ -82,12 +93,28 @@ class Mamba2Mixer(nn.Module):
         self.out_proj = normal((di, d), di**-0.5)
 
     def _project(self, xc: torch.Tensor):
-        cd = xc.dtype
-        return tuple(xc @ w.to(cd) for w in (self.wz, self.wx, self.wb, self.wc, self.wdt))
+        cd, g = xc.dtype, self.tp_group
+        xc = tp.copy(xc, g)
+        wb, wc = tp.copy(self.wb, g), tp.copy(self.wc, g)
+        return tuple(xc @ w.to(cd) for w in (self.wz, self.wx, wb, wc, self.wdt))
+
+    def _convs(self) -> tuple[torch.Tensor, ...]:
+        """(conv_x, conv_bx, conv_b, conv_bb, conv_c, conv_bc) as this rank reads them:
+        under TP its channels of x (``conv_bx`` is replicated, so sliced) and the
+        replicated B and C convs whole."""
+        g = self.tp_group
+        if g is None:
+            return self.conv_x, self.conv_bx, self.conv_b, self.conv_bb, self.conv_c, self.conv_bc
+        return (self.conv_x, tp.part(self.conv_bx, 0, g),
+                *(tp.copy(w, g) for w in (self.conv_b, self.conv_bb, self.conv_c, self.conv_bc)))
 
     def _gate_out(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        y = rmsnorm(self.norm, y * F.silu(z), self.cfg.norm_eps)
-        return y @ self.out_proj.to(y.dtype)
+        g = self.tp_group
+        if g is None:
+            y = rmsnorm(self.norm, y * F.silu(z), self.cfg.norm_eps)
+        else:
+            y = rmsnorm_split(self.norm, y * F.silu(z), self.cfg.norm_eps, g)
+        return tp.reduce(y @ self.out_proj.to(y.dtype), g)
 
     def forward(self, xin: torch.Tensor, return_state: bool = False):
         """Full-sequence SSD.  xin: (B,S,D) -> out (B,S,D).
@@ -99,12 +126,15 @@ class Mamba2Mixer(nn.Module):
         cfg = self.cfg
         cd = _dtype(cfg.compute_dtype)
         b, s, _ = xin.shape
-        h, pdim, n, g = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+        # this rank's heads and inner channels: the config's without TP
+        h, di = self.wdt.shape[1], self.wx.shape[1]
+        pdim, n, g = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
         z, x_raw, b_raw, c_raw, dt_raw = self._project(xin.to(cd))
 
-        x = F.silu(_causal_conv(self.conv_x.to(cd), self.conv_bx.to(cd), x_raw))
-        bmat = F.silu(_causal_conv(self.conv_b.to(cd), self.conv_bb.to(cd), b_raw))
-        cmat = F.silu(_causal_conv(self.conv_c.to(cd), self.conv_bc.to(cd), c_raw))
+        conv_x, conv_bx, conv_b, conv_bb, conv_c, conv_bc = self._convs()
+        x = F.silu(_causal_conv(conv_x.to(cd), conv_bx.to(cd), x_raw))
+        bmat = F.silu(_causal_conv(conv_b.to(cd), conv_bb.to(cd), b_raw))
+        cmat = F.silu(_causal_conv(conv_c.to(cd), conv_bc.to(cd), c_raw))
         x = x.reshape(b, s, h, pdim)
         bmat = bmat.reshape(b, s, g, n)
         cmat = cmat.reshape(b, s, g, n)
@@ -113,10 +143,13 @@ class Mamba2Mixer(nn.Module):
 
         y, state = ssd_ops.ssd_scan(x, dt, a, bmat, cmat, chunk=cfg.ssm_chunk)
         y = y.to(cd) + x * self.d_skip.to(cd)[None, None, :, None]
-        out = self._gate_out(y.reshape(b, s, cfg.ssm_d_inner), z)
+        out = self._gate_out(y.reshape(b, s, di), z)
         if return_state:
             w = cfg.ssm_conv_width - 1
-            tail = torch.cat([x_raw, b_raw, c_raw], dim=-1)[:, -w:, :]
+            if self.tp_group is None:
+                tail = torch.cat([x_raw, b_raw, c_raw], dim=-1)[:, -w:, :]
+            else:
+                tail = torch.cat([tp.gather(x_raw[:, -w:], -1, self.tp_group), b_raw[:, -w:], c_raw[:, -w:]], dim=-1)
             if s < w:
                 tail = F.pad(tail, (0, 0, w - s, 0))
             return out, state, tail
@@ -130,14 +163,19 @@ class Mamba2Mixer(nn.Module):
         cfg = self.cfg
         cd = _dtype(cfg.compute_dtype)
         b = xin.shape[0]
-        h, pdim, n, g = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-        di = cfg.ssm_d_inner
+        h, di = self.wdt.shape[1], self.wx.shape[1]  # this rank's, as in forward
+        pdim, n, g = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
         z, x_raw, b_raw, c_raw, dt_raw = self._project(xin.to(cd))
 
+        conv = cache["conv"]
+        if self.tp_group is not None:  # the whole [x | B | C] history: this rank's x channels, all of B and C
+            conv = torch.cat([conv[..., self.tp_group.rank * di:(self.tp_group.rank + 1) * di],
+                              conv[..., cfg.ssm_d_inner:]], dim=-1)
         new_col = torch.cat([x_raw[:, 0], b_raw[:, 0], c_raw[:, 0]], dim=-1)  # (B, conv_dim)
-        hist = torch.cat([cache["conv"].to(cd), new_col[:, None, :]], dim=1)  # (B,W,C)
-        wfull = torch.cat([self.conv_x, self.conv_b, self.conv_c], dim=1).to(cd)
-        bfull = torch.cat([self.conv_bx, self.conv_bb, self.conv_bc]).to(cd)
+        hist = torch.cat([conv.to(cd), new_col[:, None, :]], dim=1)  # (B,W,C)
+        conv_x, conv_bx, conv_b, conv_bb, conv_c, conv_bc = self._convs()
+        wfull = torch.cat([conv_x, conv_b, conv_c], dim=1).to(cd)
+        bfull = torch.cat([conv_bx, conv_bb, conv_bc]).to(cd)
         conv_out = F.silu((hist * wfull).sum(dim=1) + bfull)
         x = conv_out[:, :di].reshape(b, h, pdim)
         bvec = conv_out[:, di : di + g * n].reshape(b, g, n)
@@ -154,6 +192,9 @@ class Mamba2Mixer(nn.Module):
         y = torch.einsum("bhpn,bhn->bhp", state, cvec_h).to(cd)
         y = y + x * self.d_skip.to(cd)[None, :, None]
         out = self._gate_out(y.reshape(b, 1, di), z)
-        new_cache = {"state": state, "conv": hist[:, 1:, :].to(cache["conv"].dtype)}
+        hist = hist[:, 1:, :]
+        if self.tp_group is not None:
+            hist = torch.cat([tp.gather(hist[..., :di], -1, self.tp_group), hist[..., di:]], dim=-1)
+        new_cache = {"state": state, "conv": hist.to(cache["conv"].dtype)}
         return out, new_cache
 

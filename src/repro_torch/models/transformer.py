@@ -22,6 +22,11 @@ shared, caches not).  The cache keeps the reference's stacked layouts:
 With ``attention_impl="flash"`` the full-sequence attention of ``forward``
 (and so of ``loss_fn``) runs the flash-attention kernel; ``prefill`` and
 ``decode_step`` use the plain attention whatever it says, as the reference does.
+
+Under tensor parallelism (the modules' ``tp_group``, set by ``train/step.py``
+for the ssm, dense and hybrid families) ``forward`` returns this rank's
+vocabulary columns of the logits, which ``loss_fn`` and ``nll_sum`` take as
+they are; ``prefill`` and ``decode_step`` (ssm) gather them over the group.
 """
 from __future__ import annotations
 
@@ -34,14 +39,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
+from ..sharding import tp
 from .layers import (
     _device,
     _dtype,
-    _project_qkv,
-    _sdpa,
     attention,
     attention_decode,
     attention_init,
+    attention_prefill,
     embed,
     embedding_init,
     mlp,
@@ -49,6 +54,7 @@ from .layers import (
     rmsnorm,
     rmsnorm_init,
     unembed,
+    vocab_logits,
 )
 from .moe import moe_apply, moe_init
 from .ssm import Mamba2Mixer, ssm_init_cache
@@ -198,8 +204,12 @@ def forward(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> tuple[torch.T
     return unembed(cfg, params.embedding, x), aux
 
 
-def nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The next-token negative log likelihood summed over labels >= 0, and their count, in float32."""
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+            g: tp.Group | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The next-token negative log likelihood summed over labels >= 0, and their count, in float32.
+    With a model-axis group ``g`` the logits are this rank's vocabulary columns (``tp.nll_sum``)."""
+    if g is not None:
+        return tp.nll_sum(logits, labels, g)
     lg = logits.to(torch.float32)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
@@ -207,16 +217,16 @@ def nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, t
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, g: tp.Group | None = None) -> torch.Tensor:
     """Mean next-token cross entropy in float32 over labels >= 0."""
-    total, count = nll_sum(logits, labels)
+    total, count = nll_sum(logits, labels, g)
     return total / count.clamp(min=1.0)
 
 
 def loss_fn(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.Tensor:
     """Next-token cross entropy (+ MoE aux), in float32.  Labels < 0 are ignored."""
     logits, aux = forward(cfg, params, batch)
-    return cross_entropy(logits, batch["labels"]) + 0.01 * aux
+    return cross_entropy(logits, batch["labels"], params.embedding.tp_group) + 0.01 * aux
 
 
 # -------------------------------------------------------------------- cache
@@ -278,7 +288,7 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
         for i, lp in enumerate(params.layers):
             x = _attn_block_decode(cfg, lp, x, new_k[i], new_v[i], pos)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return unembed(cfg, params.embedding, x), new_cache
+    return vocab_logits(cfg, params.embedding, x), new_cache
 
 
 @torch.inference_mode()
@@ -301,9 +311,8 @@ def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
     cache: dict[str, Any] = _kv_cache(cfg, b, max_len, cd, x.device)
 
     def attn_block(lp: DenseLayer, x: torch.Tensor, row: int) -> torch.Tensor:
-        q, k, v = _project_qkv(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps).to(cd), positions)
-        out = _sdpa(cfg, q, k, v, lp.attn.kvm, causal=True, window=cfg.sliding_window)
-        x, _ = _ffn(cfg, lp, x + torch.einsum("bshk,hkd->bsd", out, lp.attn.wo.to(cd)))
+        h, k, v = attention_prefill(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
+        x, _ = _ffn(cfg, lp, x + h)
         cache["k"][row, :, :s] = k.to(cache["k"].dtype)
         cache["v"][row, :, :s] = v.to(cache["v"].dtype)
         return x
@@ -323,5 +332,5 @@ def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
             x = attn_block(lp, x, i)
     cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = unembed(cfg, params.embedding, x[:, -1:])
+    logits = vocab_logits(cfg, params.embedding, x[:, -1:])
     return logits, cache

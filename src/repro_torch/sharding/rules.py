@@ -207,6 +207,26 @@ def param_shardings(cfg: ArchConfig, mesh, params_shape, layout: str = "baseline
     return to_shardings(mesh, param_specs(cfg, mesh, params_shape, layout))
 
 
+# ------------------------------------------------------- local shard geometry
+def model_dim(spec: tuple) -> int | None:
+    """The tensor dim that ``spec`` splits over the ``"model"`` axis, or None."""
+    for d, entry in enumerate(spec):
+        if "model" in (entry if isinstance(entry, tuple) else (entry,)):
+            return d
+    return None
+
+
+def model_shard(spec: tuple, shape: tuple[int, ...], mesh) -> tuple[int, int, int] | None:
+    """``(dim, start, length)`` of this rank's model-axis shard of a leaf of global
+    ``shape`` under ``spec`` (a ``"model"`` entry alone in its dim: the TP
+    layouts' specs), or None where the spec keeps the leaf whole over ``"model"``."""
+    d = model_dim(spec)
+    if d is None:
+        return None
+    n = shape[d] // mesh_axes(mesh)["model"]
+    return d, mesh.get_local_rank("model") * n, n
+
+
 # ---------------------------------------------------------------- activations
 def batch_specs(cfg: ArchConfig, mesh, batch_shape, layout: str = "baseline") -> dict[str, tuple]:
     da = data_axes(mesh, "dp-only" if layout in ("dp-only", "pure-dp") else "baseline")

@@ -1,0 +1,160 @@
+"""Tensor parallelism over the mesh's ``"model"`` axis: Megatron-style region ops.
+
+A TP region is a stretch of the model that each rank of a model-axis group
+computes on its own part of a weight (its q heads, FFN hidden columns, SSM
+heads or vocabulary rows).  Activations enter it replicated and leave it
+as partial sums.  Four ops mark the edges, each a ``torch.autograd.Function``
+over the group:
+
+- :func:`copy`: identity forward, all-reduce backward.  Every replicated
+  tensor read inside a region goes through it: the activation entering the
+  region, and each replicated leaf that the rank's own part reads
+  (``wb``/``wc``, replicated ``wk``/``wv``, a norm scale the rank slices).
+  Each rank's gradient of such a tensor is partial, and the all-reduce sums
+  the parts exactly once.
+- :func:`reduce`: all-reduce forward, identity backward: the row-parallel
+  output (``wo``, ``down``, ``out_proj``), whose consumer is replicated.
+- :func:`all_reduce`: all-reduce both ways: a sum over the group whose
+  consumer is split again (the gated norm's sum of squares).
+- :func:`gather`: all-gather forward, the rank's slice backward.
+
+:func:`embed_lookup` and :func:`nll_sum` are the vocab-parallel embedding and
+token loss.  Every collective is a ``torch.distributed._functional_collectives``
+op (``_c10d_functional``), the namespace ``launch/dryrun.py``'s census prices
+(but an all-gather of CUDA tensors over ``gloo``: see ``_all_gather``).
+Each op takes the model axis's :class:`Group` explicitly; with ``None`` it is
+the identity and issues nothing, so a step without TP runs the ops it ran before.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """The model axis as one rank sees it: the process group, this rank's index in it, its size."""
+
+    group: object
+    rank: int
+    size: int
+
+
+def _all_reduce(x: torch.Tensor, g: Group, op: str = "sum") -> torch.Tensor:
+    return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), op, g.group))
+
+
+def _all_gather(x: torch.Tensor, dim: int, g: Group) -> torch.Tensor:
+    """The group's parts of ``x`` joined along ``dim`` in rank order (the op gathers
+    along dim 0, the others are cut and joined after).  A ``gloo`` group takes
+    CUDA tensors through c10d's in-place all-gather: its functional one ends the
+    process on them (torch 2.11)."""
+    x = x.contiguous()
+    if x.is_cuda and dist.get_backend(g.group) == "gloo":
+        out = torch.empty((g.size * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=g.group)
+    else:
+        out = funcol.wait_tensor(torch.ops._c10d_functional.all_gather_into_tensor(x, g.size, g.group.group_name))
+    return torch.cat(out.chunk(g.size), dim=dim) if dim % x.ndim else out
+
+
+def _mine(x: torch.Tensor, dim: int, g: Group) -> torch.Tensor:
+    """This rank's part of ``x`` along ``dim``, split in rank order."""
+    n = x.shape[dim] // g.size
+    return x.narrow(dim, g.rank * n, n)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.g), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return _all_reduce(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _all_reduce(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.g), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        return _all_gather(x, dim, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _mine(grad, ctx.dim, ctx.g), None, None
+
+
+def copy(x: torch.Tensor, g: Group | None) -> torch.Tensor:
+    return x if g is None else _Copy.apply(x, g)
+
+
+def reduce(x: torch.Tensor, g: Group | None) -> torch.Tensor:
+    return x if g is None else _Reduce.apply(x, g)
+
+
+def all_reduce(x: torch.Tensor, g: Group | None) -> torch.Tensor:
+    return x if g is None else _AllReduce.apply(x, g)
+
+
+def gather(x: torch.Tensor, dim: int, g: Group | None) -> torch.Tensor:
+    return x if g is None else _Gather.apply(x, dim, g)
+
+
+def part(x: torch.Tensor, dim: int, g: Group) -> torch.Tensor:
+    """This rank's part along ``dim`` of a replicated tensor read inside a region
+    (through :func:`copy`, so that its gradient is summed over the group)."""
+    return _mine(copy(x, g), dim, g)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype, g: Group) -> torch.Tensor:
+    """Rows of a vocab-parallel table, in ``dtype``: this rank holds rows
+    [rank * V/tp, (rank + 1) * V/tp) and looks up the tokens that fall there; the
+    others give zeros, and the sum over the group is each token's row, exactly."""
+    vl = table.shape[0]
+    local = tokens.to(torch.int64) - g.rank * vl
+    inside = (local >= 0) & (local < vl)
+    rows = table[local.clamp(0, vl - 1)].to(dtype)
+    return reduce(torch.where(inside[..., None], rows, torch.zeros((), dtype=dtype, device=rows.device)), g)
+
+
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor, g: Group) -> tuple[torch.Tensor, torch.Tensor]:
+    """``models.transformer.nll_sum`` on vocab-parallel logits (this rank's V/tp
+    columns): the max, the sum of exponentials and the gold logit are each
+    reduced over the group, so every rank gets the whole loss and the gradient
+    of its own columns."""
+    lg = logits.to(torch.float32)
+    vl = lg.shape[-1]
+    top = _all_reduce(lg.detach().amax(dim=-1), g, "max")
+    local = labels.clamp(min=0).to(torch.int64) - g.rank * vl
+    inside = (local >= 0) & (local < vl)
+    gold = torch.gather(lg, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    sums = reduce(torch.stack([(lg - top[..., None]).exp().sum(dim=-1), torch.where(inside, gold, 0.0)]), g)
+    logz = top + sums[0].log()
+    mask = (labels >= 0).to(torch.float32)
+    return ((logz - sums[1]) * mask).sum(), mask.sum()

@@ -20,8 +20,14 @@ AdamW state live between steps as DTensors in the placements of
 ``repro_torch.sharding.rules``, each rank holding only its shards.
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps over
 the same placements, with the cache in ``rules.cache_specs``'.  Each rank
-gathers every param whole and runs the model on its rows of the batch, so
-the ranks of one model-axis group compute the same rows (ROADMAP P5).  The
+runs the model on its rows of the batch (the data axes).  Where the model
+axis is wider than 1 (``baseline``, ``replicated-weights``) the ssm, dense
+and hybrid families' train and prefill steps, and the ssm family's decode
+step, are tensor parallel over it (``sharding/tp.py``): each leaf is gathered
+over the data axes only, each rank keeps its model-axis shard and computes
+only its heads, hidden columns and vocabulary slice.  The other families
+(moe, vlm, encdec) and the K/V decode steps gather every leaf whole, so the
+ranks of one model-axis group compute the same rows (ROADMAP P5b).  The
 abstract trees (``abstract_params``, ``abstract_opt_state``,
 ``abstract_cache``) are the same trees on the ``meta`` device.
 """
@@ -37,10 +43,10 @@ from torch.utils._pytree import tree_map
 from repro_torch.convert import STACKED
 from repro_torch.models import get_model
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import Attention, kv_head_map
+from repro_torch.models.layers import Attention, kv_map
 from repro_torch.models.transformer import nll_sum
 from repro_torch.optim import adamw
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, tp
 
 
 def abstract_params(cfg: ArchConfig) -> nn.Module:
@@ -163,14 +169,62 @@ def make_train_fn(cfg: ArchConfig, ocfg: adamw.AdamWConfig | None = None, *, com
     return train_step
 
 
-def _shell(cfg: ArchConfig, device_type: str) -> nn.Module:
+# the families whose steps are tensor parallel over the model axis, by step kind
+TP_FAMILIES = {"train": ("ssm", "dense", "hybrid"), "prefill": ("ssm", "dense", "hybrid"), "decode": ("ssm",)}
+
+
+def model_group(cfg: ArchConfig, mesh, layout: str, step: str) -> tp.Group | None:
+    """This rank's model-axis group when the ``step`` kind of ``cfg`` runs tensor
+    parallel on ``mesh`` under ``layout``, else None.  That needs the q heads, SSM
+    heads, FFN hidden and padded vocabulary to divide the axis
+    (``rules.pad_config_for_mesh`` pads the first and the last; every registered
+    arch divides 16); where one does not, the spec keeps its leaves whole over
+    ``model`` and the step gathers every leaf, as for the other families."""
+    size = rules.model_axis_size(mesh, layout)
+    if size == 1 or cfg.family not in TP_FAMILIES[step]:
+        return None
+    dims = [cfg.vocab_padded]
+    if cfg.family in ("ssm", "hybrid"):
+        dims.append(cfg.ssm_num_heads)
+    if cfg.family in ("dense", "hybrid"):
+        dims += [cfg.num_heads, cfg.d_ff]
+    if any(v % size for v in dims):
+        return None
+    return tp.Group(mesh.get_group("model"), mesh.get_local_rank("model"), size)
+
+
+def _shell(cfg: ArchConfig, device_type: str, g: tp.Group | None = None) -> nn.Module:
     """The model's modules with meta leaves and real buffers (each attention's q-head ->
-    kv-head map) on ``device_type``: what a sharded step fills with gathered leaves."""
+    kv-head map) on ``device_type``: what a sharded step fills with gathered leaves.
+    Under TP each module that splits over the model axis gets the group, and each
+    attention the map of this rank's q heads into the kv heads it reads."""
     shell = abstract_params(cfg)
     for mod in shell.modules():
         if isinstance(mod, Attention):
-            mod.kvm = kv_head_map(cfg.num_heads, cfg.num_kv_heads, cfg.orig_num_heads).to(device_type)
+            mod.kvm = kv_map(cfg, g).to(device_type)
+        if g is not None and hasattr(mod, "tp_group"):
+            mod.tp_group = g
     return shell
+
+
+def _keep_model(mesh, pspecs: dict, g: tp.Group | None) -> dict[str, list] | None:
+    """Under TP, each leaf's placements gathered over the data axes only: ``Shard``
+    on the model axis where its spec splits it there (``rules.model_dim``),
+    ``Replicate`` elsewhere.  None without TP: every leaf is gathered whole."""
+    if g is None:
+        return None
+    dims = {n: rules.model_dim(s.spec) for n, s in pspecs.items()}
+    return {n: [Shard(d) if a == "model" and d is not None else Replicate() for a in mesh.mesh_dim_names]
+            for n, d in dims.items()}
+
+
+def _leaves(params: dict[str, DTensor], keep: dict[str, list] | None) -> dict[str, torch.Tensor]:
+    """Each param as this rank computes with it: whole (``full_tensor``) or, under TP,
+    gathered over the data axes into ``keep``'s placements, the rank's model-axis shard."""
+    with torch.no_grad():
+        if keep is None:
+            return {n: p.full_tensor() for n, p in params.items()}
+        return {n: p.redistribute(p.device_mesh, keep[n]).to_local().detach() for n, p in params.items()}
 
 
 def _rows(cfg: ArchConfig, mesh, batch: dict[str, torch.Tensor], layout: str) -> tuple[dict, list]:
@@ -182,27 +236,33 @@ def _rows(cfg: ArchConfig, mesh, batch: dict[str, torch.Tensor], layout: str) ->
     return rows, rules.to_placements(bspecs["tokens"], mesh)
 
 
-def _cache_rows(cache, tokens: list) -> list:
-    """The placements of a cache leaf held as this rank's batch rows: the batch
-    (dim 1) split where the tokens' rows are, every other dim whole."""
-    return [Shard(1) if isinstance(pl, Shard) and cache.ndim > 1 else Replicate() for pl in tokens]
+def _cache_rows(mesh, cache: dict, tokens: list, g: tp.Group | None) -> dict:
+    """The placements of each cache leaf held as this rank's batch rows: the batch
+    (dim 1) split where the tokens' rows are, every other dim whole, but under TP
+    the SSM state's heads (dim 2) split over the model axis, as the rank holds them."""
+    def rows(t, heads=False):
+        return [Shard(2) if heads and a == "model" else Shard(1) if isinstance(pl, Shard) and t.ndim > 1
+                else Replicate() for a, pl in zip(mesh.mesh_dim_names, tokens)]
+
+    return {k: {n: rows(t, g is not None and n == "state") for n, t in v.items()} if isinstance(v, dict) else rows(v)
+            for k, v in cache.items()}
 
 
-def _place_cache(cfg: ArchConfig, mesh, local: dict, tokens: list, layout: str) -> dict:
+def _place_cache(cfg: ArchConfig, mesh, local: dict, tokens: list, layout: str, g: tp.Group | None) -> dict:
     """This rank's cache rows as DTensors in ``rules.cache_specs``' placements."""
-    rows = tree_map(lambda t: DTensor.from_local(t, mesh, _cache_rows(t, tokens), run_check=False), local)
+    rows = tree_map(lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False), local,
+                    _cache_rows(mesh, local, tokens, g))
     shardings = rules.to_shardings(mesh, rules.cache_specs(cfg, mesh, rows, layout))
     return tree_map(lambda t, s: t.redistribute(mesh, s.placements), rows, shardings)
 
 
-def _gather(params: dict[str, DTensor]) -> dict[str, torch.Tensor]:
-    """Every param whole on this rank, keyed for ``functional_call`` of an ``_Apply``.
-    Each leaf is a leaf that requires grad, as a module's parameter is (not a
-    view of the gather's buffer), so that the serving functions take the
-    module's paths through ``matmul`` and give its results bitwise."""
-    with torch.no_grad():
-        full = {f"model.{n}": p.full_tensor() for n, p in params.items()}
-    return {n: t.detach().requires_grad_() if t.is_floating_point() else t for n, t in full.items()}
+def _gather(params: dict[str, DTensor], keep: dict[str, list] | None) -> dict[str, torch.Tensor]:
+    """``_leaves`` keyed for ``functional_call`` of an ``_Apply``.  Each leaf is a
+    leaf that requires grad, as a module's parameter is (not a view of the
+    gather's buffer), so that the serving functions take the module's paths
+    through ``matmul`` and give its results bitwise."""
+    return {f"model.{n}": t.detach().requires_grad_() if t.is_floating_point() else t
+            for n, t in _leaves(params, keep).items()}
 
 
 def _reduce_squares(sq: list[torch.Tensor], grads: list[DTensor]) -> torch.Tensor:
@@ -235,11 +295,15 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
     with the metrics of ``make_train_fn`` on the whole batch.  Per step:
 
     - each rank takes its rows of the batch (``rules.batch_specs``);
-    - each param is all-gathered (``full_tensor``; in ``grad_dtype``, cast
-      before the gather) and the model runs on the rank's rows: the loss is
-      the rank's summed token loss over the global token count, so the ranks'
-      losses and gradients sum to the whole batch's (a MoE's load-balancing
-      loss enters as the mean of the ranks' own);
+    - each param is all-gathered (in ``grad_dtype``, cast before the gather)
+      and the model runs on the rank's rows: the loss is the rank's summed
+      token loss over the global token count, so the ranks' losses and
+      gradients sum to the whole batch's (a MoE's load-balancing loss enters
+      as the mean of the ranks' own).  The gather is ``full_tensor`` without
+      TP; under TP (``model_group``) it runs over the data axes only, each
+      rank keeps its model-axis shards, and the model computes on them
+      (``sharding/tp.py``): each split leaf's gradient is then that shard's,
+      each replicated leaf's is whole on every rank of the group;
     - the gradients are summed over the mesh dims that split the batch and
       scattered into the AdamW state's placements (``redistribute``: a
       reduce-scatter), the global grad norm is reduced from the shards, and
@@ -258,7 +322,9 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
     opt_shape = abstract_opt_state(params_shape)
     ospecs = {"mu": pspecs, "nu": pspecs, "step": rules.NamedSharding(mesh, ())}
-    shell = _shell(cfg, mesh.device_type)
+    group = model_group(cfg, mesh, layout, "train")
+    shell = _shell(cfg, mesh.device_type, group)
+    keep = _keep_model(mesh, pspecs, group)
     dt = getattr(torch, grad_dtype)
 
     def step(params: dict[str, DTensor], opt_state: dict, batch: dict[str, torch.Tensor]):
@@ -270,17 +336,19 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
 
         def loss_of(cfg, model, local):
             logits, aux = m.forward(cfg, model, local)
-            return nll_sum(logits, local["labels"])[0] / count + 0.01 * aux / shards
+            return nll_sum(logits, local["labels"], group)[0] / count + 0.01 * aux / shards
 
-        with torch.no_grad():
-            full = {n: (p.to(dt) if p.dtype == torch.float32 else p).full_tensor() for n, p in params.items()}
+        def held(n):  # the placements of this rank's gradient of leaf n: partial over the batch's dims
+            return partial if keep is None else [Partial() if s else pl for s, pl in zip(split, keep[n])]
+
+        full = _leaves({n: p.to(dt) if p.dtype == torch.float32 else p for n, p in params.items()}, keep)
         leaves = {n: t.requires_grad_() for n, t in full.items()}
         loss, grads = _loss_and_grad(cfg, shell, loss_of, leaves, rows)
         del full, leaves
         with torch.no_grad():
             loss = DTensor.from_local(loss, mesh, partial).full_tensor()
             into = {n: opt_state["mu"][n].placements for n in params}
-            sharded = [DTensor.from_local(grads.pop(n), mesh, partial).redistribute(mesh, into[n]) for n in params]
+            sharded = [DTensor.from_local(grads.pop(n), mesh, held(n)).redistribute(mesh, into[n]) for n in params]
             local = [g.to_local() for g in sharded]
             gnorm = _reduce_squares([g.to(torch.float32).square().sum() for g in local], sharded).sum().sqrt()
             state = {"mu": {n: t.to_local() for n, t in opt_state["mu"].items()},
@@ -324,21 +392,26 @@ def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, *, layout: str = "bas
     returns ``(step, params_shape, pspecs)``.
 
     ``step(params, batch)`` takes params as DTensors in ``pspecs`` and the
-    global batch.  Each rank gathers every param whole (``full_tensor``) and
-    prefills its rows of the batch (``rules.batch_specs``).  It returns the
-    last-position logits as a DTensor split like the tokens' rows, and the
-    cache as DTensors in ``rules.cache_specs``' placements."""
+    global batch.  Each rank gathers every param whole (``full_tensor``), or
+    under TP (``model_group``: the ssm, dense and hybrid families) over the
+    data axes only, keeping its model-axis shards, and prefills its rows of
+    the batch (``rules.batch_specs``).  It returns the last-position logits
+    (over the whole vocabulary) as a DTensor split like the tokens' rows, and
+    the cache as DTensors in ``rules.cache_specs``' placements: under TP each
+    rank's SSM state holds its heads, and K/V are gathered over the heads."""
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
-    run = _Apply(_shell(cfg, mesh.device_type), make_prefill_fn(cfg, max_len))
+    group = model_group(cfg, mesh, layout, "prefill")
+    run = _Apply(_shell(cfg, mesh.device_type, group), make_prefill_fn(cfg, max_len))
+    keep = _keep_model(mesh, pspecs, group)
 
     def step(params: dict[str, DTensor], batch: dict[str, torch.Tensor]):
         rows, tokens = _rows(cfg, mesh, batch, layout)
-        full = _gather(params)
+        full = _gather(params, keep)
         logits, cache = torch.func.functional_call(run, full, (rows,))
         del full
         return (DTensor.from_local(logits, mesh, tokens, run_check=False),
-                _place_cache(cfg, mesh, cache, tokens, layout))
+                _place_cache(cfg, mesh, cache, tokens, layout, group))
 
     return step, params_shape, pspecs
 
@@ -349,22 +422,27 @@ def make_decode_step(cfg: ArchConfig, mesh, *, layout: str = "baseline"):
 
     ``step(params, cache, tokens)`` takes params as DTensors in ``pspecs``,
     the cache as DTensors in ``rules.cache_specs``' placements and the
-    global (B, 1) tokens.  Each rank gathers every param whole and its batch
-    rows of every cache leaf (a sequence-sharded K/V or a head-sharded SSM
-    state becomes whole on the rank), and decodes its rows.  It returns the
-    next tokens as a DTensor split like the tokens' rows, and the new cache
-    scattered back into ``rules.cache_specs``' placements."""
+    global (B, 1) tokens.  Each rank takes its batch rows of every cache leaf
+    and decodes its rows.  Under TP (``model_group``: the ssm family) it
+    keeps its model-axis shards of the params and its heads of the SSM state;
+    otherwise it gathers every param whole, and a sequence-sharded K/V or a
+    head-sharded SSM state becomes whole on the rank (ROADMAP P5b).  It
+    returns the next tokens as a DTensor split like the tokens' rows, and the
+    new cache scattered back into ``rules.cache_specs``' placements."""
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
-    run = _Apply(_shell(cfg, mesh.device_type), make_decode_fn(cfg))
+    group = model_group(cfg, mesh, layout, "decode")
+    run = _Apply(_shell(cfg, mesh.device_type, group), make_decode_fn(cfg))
+    keep = _keep_model(mesh, pspecs, group)
 
     def step(params: dict[str, DTensor], cache: dict, tokens: torch.Tensor):
         rows, placements = _rows(cfg, mesh, {"tokens": tokens}, layout)
-        local = tree_map(lambda t: t.redistribute(mesh, _cache_rows(t, placements)).to_local(), cache)
-        full = _gather(params)
+        local = tree_map(lambda t, pl: t.redistribute(mesh, pl).to_local(), cache,
+                         _cache_rows(mesh, cache, placements, group))
+        full = _gather(params, keep)
         next_tok, new_cache = torch.func.functional_call(run, full, (local, rows["tokens"]))
         del full, local
         return (DTensor.from_local(next_tok, mesh, placements, run_check=False),
-                _place_cache(cfg, mesh, new_cache, placements, layout))
+                _place_cache(cfg, mesh, new_cache, placements, layout, group))
 
     return step, params_shape, pspecs

@@ -1,0 +1,390 @@
+"""Tensor parallelism over the model axis (``repro_torch.sharding.tp`` and the
+sharded steps of ``train/step.py``), on the CPU.
+
+Two groups of 4 gloo ranks (``torch_parity.run_ranks``), one over a (2, 2)
+mesh and one over a (1, 4) mesh ("data", "model"), each in its own
+processes, both started together.  On each rank, with inputs made from a
+numpy seed:
+
+- each region op (``copy`` into a column- then row-parallel product closed by
+  ``reduce``, ``all_reduce`` inside the split gated norm, ``gather``) and the
+  vocab-parallel embedding and ``nll_sum``, against the plain op on the whole
+  tensor, forward and backward;
+- the Mamba2 mixer, an attention layer (kv heads split at tp = 2, replicated
+  at tp = 4; with padded q heads; through the flash entry point) and an MLP
+  with their leaves sharded, against the unsharded module: output, input
+  gradient and each leaf's gradient;
+- ``make_train_step`` of the ssm, dense and hybrid families (mamba2-780m,
+  qwen2.5-3b and zamba2-2.7b, reduced) under ``baseline``, against
+  ``make_train_fn``'s step on the whole batch, at ``test_torch_train.py``'s
+  bars, with each leaf as the model saw it and the heads the scan and the
+  attention were given;
+- ``make_prefill_step`` of the same three, then ``make_decode_step`` from its
+  cache, against the unsharded functions.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS
+from torch_parity import run_ranks
+
+MESHES = {"2x2": 2, "1x4": 4}  # mesh name -> model axis size, over 4 ranks
+ARCH_NAMES = ("mamba2-780m", "qwen2.5-3b", "zamba2-2.7b")
+OPS = ("copy_reduce", "all_reduce", "gather", "embed_lookup", "nll_sum")
+LAYERS = ("mamba2_mixer", "attention", "attention_padded_heads", "mlp")
+OCFG = dict(lr=1e-3, warmup_steps=0, total_steps=50)
+PARAM_TOL = 1e-3 * OCFG["lr"]  # test_torch_train.py's bars
+MOMENT_TOL = 1e-4
+TOL = 1e-4
+
+RANK = """
+import dataclasses
+from types import SimpleNamespace
+import numpy as np
+from repro_torch.configs import ARCHS
+from repro_torch.data.pipeline import DataConfig, host_batch
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import get_model, layers
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+from repro_torch.sharding import rules, tp
+import repro_torch.train.step as S
+
+MODEL = {model}
+ARCH_NAMES = {arch_names!r}
+OCFG = {ocfg!r}
+mesh = make_host_mesh(model=MODEL, device="cpu")
+g = tp.Group(mesh.get_group("model"), mesh.get_local_rank("model"), MODEL)
+rng = np.random.default_rng(0)  # the same draws on every rank
+result = {{"coordinate": mesh.get_coordinate()}}
+
+
+def t(*shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def mine(x, dim):
+    n = x.shape[dim] // MODEL
+    return x.narrow(dim, g.rank * n, n)
+
+
+def value_and_grads(fn, *xs, weight):
+    \"\"\"fn(*xs), and the gradients of sum(fn(*xs) * weight) with respect to xs.\"\"\"
+    xs = [x.detach().clone().requires_grad_() for x in xs]
+    y = fn(*xs)
+    return y.detach(), [d.detach() for d in torch.autograd.grad((y * weight).sum(), xs)]
+
+
+def err(a, b):
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def compare(sharded, plain, picks):
+    \"\"\"Relative max errors of the sharded output and gradients against the plain
+    ones, each plain one first cut by ``picks`` (this rank's part, or whole): the
+    output's pick first, then one per input.\"\"\"
+    (ys, gs), (yp, gp) = sharded, plain
+    return [err(a, pick(b)) for a, b, pick in zip([ys, *gs], [yp, *gp], picks)]
+
+
+def whole(x):
+    return x
+
+
+# ---- the region ops, against plain ops on whole tensors
+ops = {{}}
+x, w1, w2, r = t(6, 8), t(8, 16), t(16, 8), t(6, 8)
+ops["copy_reduce"] = compare(
+    value_and_grads(lambda x, a, b: tp.reduce(torch.nn.functional.silu(tp.copy(x, g) @ a) @ b, g),
+                    x, mine(w1, 1), mine(w2, 0), weight=r),
+    value_and_grads(lambda x, a, b: torch.nn.functional.silu(x @ a) @ b, x, w1, w2, weight=r),
+    [whole, whole, lambda d: mine(d, 1), lambda d: mine(d, 0)])
+x, scale, r = t(3, 5, 16), t(16), t(3, 5, 16)
+ops["all_reduce"] = compare(  # each rank's loss term is its part's; their sum is the plain loss
+    value_and_grads(lambda x, s: layers.rmsnorm_split(SimpleNamespace(scale=s), x, 1e-5, g), mine(x, -1), scale,
+                    weight=mine(r, -1)),
+    value_and_grads(lambda x, s: layers._rms(x, s, 1e-5), x, scale, weight=r),
+    [lambda d: mine(d, -1), lambda d: mine(d, -1), whole])
+x, r = t(3, 4, 12), t(3, 4, 12)
+ops["gather"] = compare(value_and_grads(lambda x: tp.gather(x, -1, g), mine(x, -1), weight=r),
+                        value_and_grads(lambda x: x * 1.0, x, weight=r), [whole, lambda d: mine(d, -1)])
+table, tokens, r = t(32, 8), torch.from_numpy(rng.integers(0, 32, (3, 7))), t(3, 7, 8)
+ops["embed_lookup"] = compare(
+    value_and_grads(lambda tb: tp.embed_lookup(tb, tokens, torch.float32, g), mine(table, 0), weight=r),
+    value_and_grads(lambda tb: tb[tokens], table, weight=r), [whole, lambda d: mine(d, 0)])
+logits = 3 * t(3, 7, 32)
+labels = torch.from_numpy(rng.integers(-1, 32, (3, 7)))  # -1: ignored
+one = torch.ones(())
+ops["nll_sum"] = compare(value_and_grads(lambda lg: tp.nll_sum(lg, labels, g)[0], mine(logits, -1), weight=one),
+                         value_and_grads(lambda lg: T.nll_sum(lg, labels)[0], logits, weight=one),
+                         [whole, lambda d: mine(d, -1)])
+ops["nll_sum_count"] = [float(tp.nll_sum(mine(logits, -1), labels, g)[1]), float(T.nll_sum(logits, labels)[1])]
+result["ops"] = ops
+
+
+# ---- layers with their leaves sharded, against the unsharded module
+def build(name, **changes):
+    cfg = rules.pad_config_for_mesh(dataclasses.replace(ARCHS[name].reduced(), **changes), mesh)
+    return cfg, get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+def layer_check(cfg, model, prefix, fn, x):
+    \"\"\"fn(module, x) on the unsharded layer and on a TP shell's layer holding this
+    rank's shards: [output, input gradient, each leaf's gradient] relative errors,
+    and the local leaf shapes.\"\"\"
+    specs = rules.param_specs(cfg, mesh, model)
+    plain_mod = model.get_submodule(prefix)
+    names = [n for n, _ in plain_mod.named_parameters()]
+    full = [p.detach() for _, p in plain_mod.named_parameters()]
+    shards = [rules.model_shard(specs[f"{{prefix}}.{{n}}"], tuple(p.shape), mesh) for n, p in zip(names, full)]
+    shell = S._shell(cfg, "cpu", g).get_submodule(prefix)
+    r = t(*x.shape)
+
+    def run(module, x, *leaves):
+        leaves = {{f"model.{{n}}": p for n, p in zip(names, leaves)}}
+        return torch.func.functional_call(S._Apply(module, fn), leaves, (x,))
+
+    local = [p if s is None else p.narrow(*s) for p, s in zip(full, shards)]
+    got = value_and_grads(lambda x, *ls: run(shell, x, *ls), x, *local, weight=r)
+    want = value_and_grads(lambda x, *ls: run(plain_mod, x, *ls), x, *full, weight=r)
+    picks = [whole, whole] + [whole if s is None else (lambda d, s=s: d.narrow(*s)) for s in shards]
+    return {{"errs": dict(zip(["out", "x"] + names, compare(got, want, picks))),
+             "local": {{n: tuple(p.shape) for n, p in zip(names, local)}},
+             "split": [n for n, s in zip(names, shards) if s is not None]}}
+
+
+lay = {{}}
+heads = []
+ssd_scan, flash = ssd_ops.ssd_scan, fa_ops.flash_attention
+
+
+def spy_ssd(x, dt, a, b, c, chunk):
+    heads.append(("ssd_scan", x.shape[2]))
+    return ssd_scan(x, dt, a, b, c, chunk=chunk)
+
+
+def spy_flash(q, k, v, window=0):
+    heads.append(("flash_attention", q.shape[2], k.shape[2]))
+    return flash(q, k, v, window=window)
+
+
+ssd_ops.ssd_scan, fa_ops.flash_attention = spy_ssd, spy_flash
+cfg, model = build("mamba2-780m")
+x = t(2, 24, cfg.d_model)
+lay["mamba2_mixer"] = layer_check(cfg, model, "layers.0.ssm", lambda m, x: m(x), x)
+lay["mamba2_mixer"]["heads"] = heads[:]
+pos = torch.arange(24)[None].expand(2, 24)
+for key, changes in (("attention", {{"attention_impl": "flash"}}), ("attention_padded_heads", {{"num_heads": 6}})):
+    cfg, model = build("qwen2.5-3b", **changes)
+    heads.clear()
+    lay[key] = layer_check(cfg, model, "layers.0.attn", lambda m, x, cfg=cfg: layers.attention(cfg, m, x, pos), x)
+    lay[key]["heads"] = heads[:]
+    lay[key]["padded"] = [cfg.num_heads, cfg.orig_num_heads, cfg.num_kv_heads]
+cfg, model = build("qwen2.5-3b")
+lay["mlp"] = layer_check(cfg, model, "layers.0.mlp", lambda m, x: layers.mlp(m, x, cfg.compute_dtype), x)
+result["layers"] = lay
+
+
+# ---- the sharded steps, against the unsharded functions
+seen = {{}}
+leaves = S._leaves
+
+
+def spy_leaves(params, keep):
+    out = leaves(params, keep)
+    seen.setdefault("leaves", []).append({{n: t.clone() for n, t in out.items()}})
+    return out
+
+
+S._leaves = spy_leaves
+steps = {{}}
+for name in ARCH_NAMES:
+    cfg, model = build(name, **({{"attention_impl": "flash"}} if name != "mamba2-780m" else {{}}))
+    init = {{n: p.detach().clone() for n, p in model.named_parameters()}}
+    specs = rules.param_specs(cfg, mesh, model)
+    hb = host_batch(cfg, DataConfig(seq_len=24, global_batch=4, seed=0), 0)
+    hb = {{k: torch.from_numpy(v) for k, v in hb.items()}}
+    ocfg = adamw.AdamWConfig(**OCFG)
+    step, _, pspecs, _, ospecs = S.make_train_step(cfg, mesh, ocfg)
+    params = rules.distribute(dict(model.named_parameters()), pspecs)
+    opt = rules.distribute(adamw.init(model), ospecs)
+    seen.clear()
+    heads.clear()
+    _, _, metrics = step(params, opt, hb)
+    (used,) = seen["leaves"]
+    shard_of = {{n: (init[n] if (s := rules.model_shard(specs[n], tuple(init[n].shape), mesh)) is None
+                    else init[n].narrow(*s)) for n in init}}
+    row = {{"metrics": {{k: v.item() for k, v in metrics.items()}}, "heads": heads[:],
+            "used": {{n: (tuple(u.shape), tuple(shard_of[n].shape), torch.equal(u, shard_of[n]))
+                     for n, u in used.items()}},
+            "params": {{n: p.full_tensor() for n, p in params.items()}},
+            "mu": {{n: v.full_tensor() for n, v in opt["mu"].items()}},
+            "nu": {{n: v.full_tensor() for n, v in opt["nu"].items()}},
+            "tp": S.model_group(cfg, mesh, "baseline", "train") is not None}}
+    if rank == 0:
+        plain = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        popt = adamw.init(plain)
+        _, _, pm = S.make_train_fn(cfg, ocfg)(plain, popt, hb)
+        row["want"] = {{"metrics": {{k: v.item() for k, v in pm.items()}},
+                       "params": {{n: p.detach() for n, p in plain.named_parameters()}},
+                       "mu": popt["mu"], "nu": popt["nu"], "eps": ocfg.eps, "b1": ocfg.b1}}
+    steps[name] = row
+
+    # prefill, then one decode step from its cache
+    cfg = dataclasses.replace(cfg, attention_impl="xla")
+    model = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {{"tokens": torch.randint(0, cfg.vocab_size, (4, 12), generator=gen, dtype=torch.int32)}}
+    nxt = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen, dtype=torch.int32)
+    prefill, _, pspecs = S.make_prefill_step(cfg, mesh, 32)
+    decode, _, _ = S.make_decode_step(cfg, mesh)
+    params = rules.distribute(dict(model.named_parameters()), pspecs)
+    seen.clear()
+    heads.clear()
+    logits, cache = prefill(params, batch)
+    prefill_used = seen["leaves"][0]
+    next_tok, new = decode(params, cache, nxt)
+    decode_used = seen["leaves"][1]
+    want_logits, want_cache = S.make_prefill_fn(cfg, 32)(model, batch)
+    want_next, want_new = S.make_decode_fn(cfg)(model, want_cache, nxt)
+
+    def flat(tree, prefix=""):
+        return {{k: v for key, val in tree.items() for k, v in
+                (flat(val, prefix + key + "/").items() if isinstance(val, dict) else [(prefix + key, val)])}}
+
+    steps[name]["serve"] = {{
+        "logits": [logits.full_tensor(), want_logits], "next": [next_tok.full_tensor(), want_next],
+        "cache": {{k: [v.full_tensor(), flat(want_cache)[k], [str(p) for p in v.placements]]
+                  for k, v in flat(cache).items()}},
+        "new": {{k: [v.full_tensor(), flat(want_new)[k]] for k, v in flat(new).items()}},
+        "heads": heads[:],
+        "prefill_local": {{n: tuple(u.shape) == tuple(shard_of[n].shape) for n, u in prefill_used.items()}},
+        "decode_local": {{n: tuple(u.shape) == tuple(shard_of[n].shape) for n, u in decode_used.items()}},
+        "decode_tp": S.model_group(cfg, mesh, "baseline", "decode") is not None}}
+result["steps"] = steps
+"""
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Each mesh's 4 ranks' results, both groups run at once."""
+    import concurrent.futures
+
+    # the directories first, in this thread: the factory's first call may clear its base directory
+    dirs = {mesh: tmp_path_factory.mktemp(f"tp{mesh}") for mesh in MESHES}
+
+    def one(mesh):
+        code = RANK.format(model=MESHES[mesh], arch_names=ARCH_NAMES, ocfg=OCFG)
+        return run_ranks(code, 4, dirs[mesh])
+
+    with concurrent.futures.ThreadPoolExecutor(len(MESHES)) as pool:
+        return dict(zip(MESHES, pool.map(one, MESHES)))
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_region_ops_match_plain_ops(ranks, mesh, op):
+    """Forward and every input's gradient (this rank's part of a split one) within
+    1e-5 of the plain op's largest, on every rank; ``nll_sum``'s count exactly."""
+    for r in ranks[mesh]:
+        errs = r["ops"][op]
+        assert max(errs) < 1e-5, (op, errs)
+        if op == "nll_sum":
+            a, b = r["ops"]["nll_sum_count"]
+            assert a == b
+
+
+@pytest.mark.parametrize("layer", LAYERS)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_layers_with_sharded_leaves_match_unsharded(ranks, mesh, layer):
+    """The layer on this rank's shards (``rules.model_shard``) against the unsharded
+    layer: output, input gradient and each leaf's gradient (the shard's part of a
+    split leaf, the whole of a replicated one) within 1e-5 of their largest.  The
+    scan and the attention see H/tp heads; qwen2.5-3b's 2 kv heads split at tp = 2
+    and are read one a rank, from the replicated pair, at tp = 4; with 6 q heads,
+    3 a rank at tp = 2, and padded to 8 at tp = 4."""
+    tp = MESHES[mesh]
+    for r in ranks[mesh]:
+        got = r["layers"][layer]
+        assert max(got["errs"].values()) < 1e-5, got["errs"]
+        assert got["split"], "no leaf was split over the model axis"
+        if layer == "mamba2_mixer":
+            h = ARCHS["mamba2-780m"].reduced().ssm_num_heads
+            assert got["heads"] == [("ssd_scan", h // tp), ("ssd_scan", h)]  # sharded, then plain
+            assert set(got["split"]) == {"wz", "wx", "wdt", "conv_x", "a_log", "dt_bias", "d_skip", "out_proj"}
+        if layer == "attention":
+            assert got["heads"] == [("flash_attention", 4 // tp, 1), ("flash_attention", 4, 2)]
+            assert ("wk" in got["split"]) == (tp == 2)
+        if layer == "attention_padded_heads":
+            h = -(-6 // tp) * tp  # 6 q heads, padded to 8 at tp = 4
+            assert got["padded"] == [h, 6 if h > 6 else 0, 2] and got["local"]["wq"][1] == h // tp
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_train_step_matches_whole_batch_step(ranks, mesh, name):
+    """make_train_step under ``baseline`` against make_train_fn's step on the whole
+    batch: loss, lr and grad norm at 1e-4, every param at 1e-3 lr (where the
+    clipped gradient is not within 100 eps of zero) and each AdamW moment at
+    1e-4, as ``test_torch_train.py`` holds them; every rank reports the same
+    metrics and the same gathered tree."""
+    got = [r["steps"][name] for r in ranks[mesh]]
+    want = got[0]["want"]
+    for r in got:
+        assert r["tp"] and r["metrics"] == got[0]["metrics"]
+        for key in ("params", "mu", "nu"):
+            assert all(torch.equal(t, got[0][key][n]) for n, t in r[key].items()), key
+    r = got[0]
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(r["metrics"][k], v, rtol=TOL, atol=TOL, err_msg=k)
+    noisy = []
+    for n, p in want["params"].items():
+        g = (want["mu"][n] / (1 - want["b1"])).numpy()
+        miss = np.abs(r["params"][n].numpy() - p.numpy()) > PARAM_TOL
+        noisy += [float(x) for x in g[miss]]
+        for m in ("mu", "nu"):
+            np.testing.assert_allclose(r[m][n].numpy(), want[m][n].numpy(), atol=MOMENT_TOL, rtol=0, err_msg=f"{m} {n}")
+    assert all(abs(x) < 100 * want["eps"] for x in noisy)
+    assert len(noisy) <= 1e-3 * sum(p.numel() for p in want["params"].values())
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_train_step_computes_only_each_ranks_model_shards(ranks, mesh, name):
+    """Every leaf the model computes with in the step is exactly this rank's
+    model-axis shard of it (``rules.model_shard``; whole where the spec keeps it
+    whole over ``model``), and the scan and flash attention get H/tp q heads."""
+    tp = MESHES[mesh]
+    cfg = ARCHS[name].reduced()
+    for r in ranks[mesh]:
+        used = r["steps"][name]["used"]
+        assert all(shape == want and same for shape, want, same in used.values()), used
+        assert any(shape != tuple(r["steps"][name]["params"][n].shape) for n, (shape, _, _) in used.items())
+        heads = r["steps"][name]["heads"]
+        assert heads and all(h[1] == (cfg.ssm_num_heads if h[0] == "ssd_scan" else cfg.num_heads) // tp for h in heads)
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_prefill_and_decode_steps_match_unsharded(ranks, mesh, name):
+    """make_prefill_step (tensor parallel for all three) and make_decode_step from
+    its cache (tensor parallel for mamba2; the K/V families gather, ROADMAP P5b)
+    against make_prefill_fn and make_decode_fn: logits and every cache leaf at
+    1e-4, the next tokens equal.  Prefill computes with each rank's shards; the
+    SSM state stays split over the heads on ``model``."""
+    for r in ranks[mesh]:
+        s = r["steps"][name]["serve"]
+        for key in ("logits", "next"):
+            got, want = s[key]
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=TOL, rtol=TOL, err_msg=key)
+        for part in ("cache", "new"):
+            for k, (got, want, *_) in s[part].items():
+                np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL, err_msg=f"{part} {k}")
+        assert all(s["prefill_local"].values())
+        assert all(s["decode_local"].values()) == s["decode_tp"] == (name == "mamba2-780m")
+        if "ssm/state" in s["cache"]:
+            assert s["cache"]["ssm/state"][2][-1] == "S(2)"  # the heads, over the model axis

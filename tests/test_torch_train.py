@@ -11,7 +11,9 @@ the uninterrupted one bitwise.  With ``remat`` on, every family's step is
 bitwise its ``remat=False`` step and matches the reference's ``jax.checkpoint``
 step; the abstract trees equal the reference's ``eval_shape`` trees; and
 ``make_train_step`` on 4 gloo ranks ((2, 2) mesh) equals ``make_train_fn``'s
-whole-batch step, each rank keeping only its shards.
+whole-batch step, each rank keeping only its shards (under ``baseline`` the
+ssm, dense and hybrid steps are tensor parallel over the model axis;
+``tests/test_torch_tp.py`` holds that path in detail).
 """
 from types import SimpleNamespace
 
@@ -271,7 +273,8 @@ def test_abstract_trees_equal_reference_eval_shape(name):
 
 
 # ---------------------------------------------------- the sharded train step
-SHARDED_CASES = [(n, layout) for n in ("mamba2-780m", "qwen2.5-3b") for layout in ("baseline", "pure-dp")]
+SHARDED_CASES = [(n, layout) for n in ("mamba2-780m", "qwen2.5-3b", "zamba2-2.7b")
+                 for layout in ("baseline", "pure-dp")]
 SHARDED = f"""
 from repro_torch.configs import ARCHS
 from repro_torch.data.pipeline import DataConfig, host_batch
@@ -316,7 +319,8 @@ def sharded_steps(tmp_path_factory):
 def test_sharded_train_step_matches_whole_batch_step(sharded_steps, name, layout):
     """make_train_step on a (2, 2) mesh against make_train_fn's step on the whole
     batch: the loss, lr and grad norm, every param and AdamW moment, at this file's
-    bars; every rank reports the same metrics and the same gathered tree."""
+    bars; every rank reports the same metrics and the same gathered tree.  Under
+    ``baseline`` each rank computes with its model-axis shards (tensor parallel)."""
     got = [r[(name, layout)] for r in sharded_steps]
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 2))
     cfg = rules.pad_config_for_mesh(ARCHS[name].reduced(), mesh, layout)
