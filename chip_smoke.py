@@ -51,10 +51,16 @@ with random weights from seed 0, and checks that each went through its kernel:
 - tensor parallelism (``phase_tp``): two processes on the card as the (1, 2)
   mesh, a ``gloo`` group over CUDA tensors (probed first): ``ssd_scan`` and
   ``flash_attention`` held against their plain versions at one rank's local
-  shapes; f32 twins of mamba2-780m, qwen2.5-3b (flash) and zamba2-2.7b, depth
-  cut, whose prefill and ``make_train_step`` on the (1, 2) mesh match the
-  (1, 1) mesh's; and mamba2-780m at full width and depth taking one warm
-  step per rank (96 ``ssd_scan`` launches on 24 of its 48 heads);
+  shapes (qwen2.5-3b's and internvl2-26b's flash); f32 twins of mamba2-780m,
+  qwen2.5-3b (flash), zamba2-2.7b and internvl2-26b (flash), depth cut,
+  whose prefill and ``make_train_step`` on the (1, 2) mesh match the (1, 1)
+  mesh's; f32 decode twins of qwen2.5-3b, zamba2-2.7b and internvl2-26b,
+  each rank attending over its half of the K/V cache's sequence, whose
+  greedy decode matches the (1, 1) mesh's across the shard boundary;
+  qwen2.5-3b at full width and depth serving 4 x 1024 tokens in bf16 on both
+  meshes (K/V bytes and memory a rank); and mamba2-780m at full width and
+  depth taking one warm step per rank (96 ``ssd_scan`` launches on 24 of its
+  48 heads);
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -1910,21 +1916,35 @@ def phase_dryrun() -> dict:
 TP_SIZE = 2  # the (1, 2) mesh of phase_tp: two ranks on the one card
 TP_SSD_SHAPE = {**SERVE_SHAPE, "h": SERVE_SHAPE["h"] // TP_SIZE}  # mamba2-780m's scan on one rank's 24 heads
 TP_FA_SHAPE = {**FA_FORWARD_SHAPE, "h": FA_FORWARD_SHAPE["h"] // TP_SIZE, "kh": FA_FORWARD_SHAPE["kh"] // TP_SIZE}
+TP_FA_VLM_SHAPE = dict(b=4, s=1024, h=48 // TP_SIZE, kh=8 // TP_SIZE, d=128)  # internvl2-26b's flash on one rank
 TP_TWIN_DATA = dict(seq_len=512, global_batch=2, seed=1)  # the f32 twins' batch, as check_train_f32's
 # (arch, layers, attention_impl) of each f32 twin: zamba2 keeps the 6 layers that reach its shared block
 TP_TWINS = (("mamba2-780m", TRAIN_RESTART_LAYERS, "xla"), ("qwen2.5-3b", TRAIN_RESTART_LAYERS, "flash"),
-            ("zamba2-2.7b", ZAMBA2_TRAIN_LAYERS, "flash"))
+            ("zamba2-2.7b", ZAMBA2_TRAIN_LAYERS, "flash"), ("internvl2-26b", TRAIN_RESTART_LAYERS, "flash"))
 TP_GRAD_BAR = 1e-3  # each leaf's gradient and each prefill leaf, of the leaf's largest; phase_train's bars
+# (arch, layers) of each f32 decode twin, and their batch: a prompt of 28 tokens (after a vlm's 256
+# patches) in a sequence of 2 x (prefix + 28 + 4), so that the 5th of 8 decode steps writes the first
+# row of the second rank's shard
+TP_DECODE_TWINS = (("qwen2.5-3b", TRAIN_RESTART_LAYERS), ("zamba2-2.7b", ZAMBA2_TRAIN_LAYERS),
+                   ("internvl2-26b", TRAIN_RESTART_LAYERS))
+TP_DECODE = dict(batch=2, prompt=28, steps=8)
+TP_DECODE_BAR = 1e-4  # each step's logits, of the logit scale, and each new cache leaf, of its largest
+TP_SERVE = dict(batch=4, prompt=1024, max_len=2048, steps=32)  # qwen2.5-3b, full width and depth, bf16
+
+
+def tp_cfg(cfg):
+    """``cfg`` padded for the (1, 2) mesh; the (1, 1) reference runs the same config,
+    so that both draw the same leaves from one seed."""
+    from repro_torch.sharding import rules
+
+    return rules.pad_config_for_mesh(cfg, types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, TP_SIZE)))
 
 
 def tp_twin_cfg(name: str, layers: int, impl: str):
-    """The f32 twin of ``name`` at ``layers``, padded for the (1, 2) mesh; the (1, 1)
-    reference runs the same config, so that both hold leaves of one shape."""
+    """The f32 twin of ``name`` at ``layers``, padded for the (1, 2) mesh."""
     from repro_torch.configs import ARCHS
-    from repro_torch.sharding import rules
 
-    cfg = dataclasses.replace(ARCHS[name], num_layers=layers, compute_dtype="float32", attention_impl=impl)
-    return rules.pad_config_for_mesh(cfg, types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, TP_SIZE)))
+    return tp_cfg(dataclasses.replace(ARCHS[name], num_layers=layers, compute_dtype="float32", attention_impl=impl))
 
 
 def tp_whole(t) -> torch.Tensor:
@@ -1960,7 +1980,7 @@ def tp_twin_run(cfg, mesh) -> dict:
     opt = rules.distribute(adamw.init(model), ospecs)
     del model
     prefill, _, _ = make_prefill_step(cfg, mesh, TP_TWIN_DATA["seq_len"])
-    logits, cache = prefill(params, {"tokens": batch["tokens"]})
+    logits, cache = prefill(params, {k: v for k, v in batch.items() if k != "labels"})
     flat = {"logits": tp_whole(logits)}
     flat.update({f"cache/{k}": tp_whole(v) for k, v in cache.items() if not isinstance(v, dict)})
     flat.update({f"cache/ssm/{k}": tp_whole(v) for k, v in cache.get("ssm", {}).items()})
@@ -1983,9 +2003,96 @@ def tp_twin_run(cfg, mesh) -> dict:
             "launches": counts, "specs": {n: s.spec for n, s in pspecs.items()}}
 
 
+def tp_decode_batch(cfg) -> tuple[dict, int]:
+    """A decode twin's prompt (TP_DECODE, a vlm's patch embeddings first) and the
+    ``max_len`` that makes its sequence 2 x (prefix + prompt + 4) long."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, p = TP_DECODE["batch"], TP_DECODE["prompt"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, p), generator=g, device="cuda", dtype=torch.int32)}
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    if prefix:
+        batch["patch_embeds"] = 0.02 * torch.randn((b, prefix, cfg.d_model), generator=g, device="cuda")
+    return batch, 2 * (prefix + p + 4) - prefix
+
+
+def tp_serve_run(cfg, mesh, batch: dict, max_len: int, steps: int, record: bool = True) -> dict:
+    """``make_prefill_step``, then ``steps`` greedy ``make_decode_step`` calls over
+    ``mesh``, from seed 0's params: the next tokens, each kernel's launches in the
+    prefill, the K/V leaf's local shape, placements and bytes (K and V), the
+    host times and ``max_memory_allocated`` from the prefill on, the first
+    step's logits and each step's margin between its two largest logits; with
+    ``record``, each step's logits and every new cache leaf (each rank's whole
+    view)."""
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    seen, decode_step = [], T.decode_step
+
+    def spy(*args):  # the logits of each decode step, which the step itself reduces to the next tokens
+        out = decode_step(*args)
+        seen.append(out[0])
+        return out
+
+    T.decode_step = spy
+    try:
+        prefill, _, pspecs = make_prefill_step(cfg, mesh, max_len)
+        decode, _, _ = make_decode_step(cfg, mesh)
+    finally:
+        T.decode_step = decode_step
+    model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = rules.distribute(dict(model.named_parameters()), pspecs)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    out = {"prefill_ms_host": (time.perf_counter() - t0) * 1e3, "prefill_launches": kernel_counts(),
+           "k_local": list(cache["k"].to_local().shape), "k_placements": [str(p) for p in cache["k"].placements],
+           "kv_bytes": sum(cache[k].to_local().numel() * cache[k].to_local().element_size() for k in ("k", "v")),
+           "pos": int(cache["pos"].to_local()), "steps": [], "decode_ms_host": [], "margins": []}
+    tok = torch.argmax(tp_whole(logits)[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+    tokens = []
+    for _ in range(steps):
+        seen.clear()
+        t0 = time.perf_counter()
+        nxt, cache = decode(params, cache, tok)
+        torch.cuda.synchronize()
+        out["decode_ms_host"].append((time.perf_counter() - t0) * 1e3)
+        tok = tp_whole(nxt)
+        tokens.append(tok)
+        top2 = seen[0][:, -1].float().topk(2, dim=-1).values
+        out["margins"].append((top2[:, 0] - top2[:, 1]).tolist())
+        if len(tokens) == 1:
+            out["first_logits"] = seen[0].float().cpu()
+        if record:
+            leaves = {k: v for k, v in cache.items() if not isinstance(v, dict)}
+            leaves.update({f"ssm/{k}": v for k, v in cache.get("ssm", {}).items()})
+            out["steps"].append({"logits": seen[0].float().cpu(), "next": tok.cpu(),
+                                 "cache": {k: tp_whole(v).cpu() for k, v in leaves.items() if k != "pos"}})
+    out["tokens"] = torch.cat(tokens, dim=1).cpu()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def tp_serve_cfg():
+    from repro_torch.configs import ARCHS
+
+    return tp_cfg(ARCHS["qwen2.5-3b"])
+
+
+def tp_serve_batch(cfg) -> dict:
+    return {"tokens": cuda_batch(cfg, seq_len=TP_SERVE["prompt"], global_batch=TP_SERVE["batch"], seed=5)["tokens"]}
+
+
 # one rank of phase_tp's (1, 2) mesh: argv = rank, port, directory of the (1, 1) references
 TP_RANK = r"""
 import dataclasses, json, sys, time
+import numpy as np
 import torch
 import torch.distributed as dist
 import chip_smoke as cs
@@ -2071,6 +2178,50 @@ for name, layers, impl in cs.TP_TWINS:
     torch.cuda.empty_cache()
 out["twins"] = twins
 
+
+def rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+# (d) the f32 decode twins against the (1, 1) mesh's, step by step
+decode = {}
+for name, layers in cs.TP_DECODE_TWINS:
+    print(f"rank {rank}: decode twin {name}", file=sys.stderr, flush=True)
+    cfg = cs.tp_twin_cfg(name, layers, "xla")
+    batch, max_len = cs.tp_decode_batch(cfg)
+    heads.clear()
+    got = cs.tp_serve_run(cfg, mesh, batch, max_len, cs.TP_DECODE["steps"])
+    ref = torch.load(f"{tmp}/decode_{name}.pt", mmap=True)
+    pairs = list(zip(got["steps"], ref["steps"]))
+    decode[name] = {"layers": layers, "max_len": max_len, "pos": got["pos"],
+                    "logits_rel": [rel(g["logits"], r["logits"]) for g, r in pairs],
+                    "cache_rel": [max(rel(v, r["cache"][k]) for k, v in g["cache"].items()) for g, r in pairs],
+                    "leaves": sorted(got["steps"][0]["cache"]),
+                    "next_equal": [torch.equal(g["next"], r["next"]) for g, r in pairs],
+                    "k_local": got["k_local"], "k_local_1x1": ref["k_local"], "k_placements": got["k_placements"],
+                    "prefill_launches": got["prefill_launches"], "prefill_launches_1x1": ref["prefill_launches"],
+                    "heads": sorted(set(map(tuple, heads)))}
+    del got, ref, pairs
+    torch.cuda.empty_cache()
+out["decode"] = decode
+
+# (f) qwen2.5-3b at full width and depth, bf16, serving 4 x 1024 tokens, against the (1, 1) mesh's tokens
+print(f"rank {rank}: serving", file=sys.stderr, flush=True)
+cfg = cs.tp_serve_cfg()
+got = cs.tp_serve_run(cfg, mesh, cs.tp_serve_batch(cfg), cs.TP_SERVE["max_len"], cs.TP_SERVE["steps"], record=False)
+ref = torch.load(f"{tmp}/serve.pt")
+same = got["tokens"] == ref["tokens"]
+out["serve"] = {k: got[k] for k in ("kv_bytes", "k_local", "k_placements", "max_memory_allocated", "prefill_ms_host",
+                                    "decode_ms_host", "prefill_launches")}
+forks = [int(row.logical_not().nonzero()[0]) if not row.all() else None for row in same]
+out["serve"].update(tokens_equal=int(same.sum()), tokens=same.numel(), first_fork=forks,
+                    first_step_logits_rel=rel(got["first_logits"], ref["first_logits"]),
+                    logit_scale=ref["first_logits"].abs().max().item(),
+                    margin_at_fork_1x1=[None if f is None else ref["margins"][f][i] for i, f in enumerate(forks)],
+                    median_margin_1x1=float(np.median(ref["margins"])))
+del got
+torch.cuda.empty_cache()
+
 # (a) mamba2-780m at full width and depth, bf16, remat: one step to warm, one measured
 print(f"rank {rank}: full width", file=sys.stderr, flush=True)
 cfg = rules.pad_config_for_mesh(ARCHS["mamba2-780m"], mesh)
@@ -2109,15 +2260,27 @@ def phase_tp() -> dict:
 
     (c) the kernels at the ranks' local shapes, against their plain versions at
     the kernel bars: ``ssd_scan`` at mamba2-780m's 24 heads a rank and
-    ``flash_attention`` at qwen2.5-3b's 8 q heads over 1 kv head, with their
-    times and bounds.  (b) f32 twins, full width, depth cut (TP_TWINS): a
-    prefill and one ``make_train_step`` on the (1, 2) mesh against the same on
-    the (1, 1) mesh (this process, ``make_host_mesh()``): loss 1e-4 rel., grad
-    norm 1e-3 rel., each leaf's gradient (each rank's shard) and each prefill
-    leaf within TP_GRAD_BAR of its largest.  (a) mamba2-780m at full width and
-    depth, bf16, ``remat`` on, 4 x 1024 tokens: one warm ``make_train_step``
-    per rank, 96 ``ssd_scan`` launches (48 layers, forward and recompute) on
-    24 heads and 48 plain backwards, each rank's ``max_memory_allocated``."""
+    ``flash_attention`` at qwen2.5-3b's 8 q heads over 1 kv head and (c′) at
+    internvl2-26b's 24 over 4, with their times, bounds and SDPA's.  (b) and
+    (e) f32 twins, full width, depth cut (TP_TWINS, internvl2-26b's with its
+    patch prefix through flash): a prefill and one ``make_train_step`` on the
+    (1, 2) mesh against the same on the (1, 1) mesh (this process,
+    ``make_host_mesh()``): loss 1e-4 rel., grad norm 1e-3 rel., each leaf's
+    gradient (each rank's shard) and each prefill leaf within TP_GRAD_BAR of
+    its largest, each kernel launched as often as on (1, 1), on the rank's
+    heads.  (d) f32 decode twins (TP_DECODE_TWINS): a prefill, then 8 greedy
+    decode steps whose ``pos`` crosses from the first rank's half of the
+    sequence into the second's: each step's next tokens equal the (1, 1)
+    mesh's, its logits and every new cache leaf within TP_DECODE_BAR, and each
+    rank's K/V leaf is (L, B, S/2, K, D).  (f) qwen2.5-3b at full width and
+    depth, bf16, serving a prefill of 4 x 1024 tokens at ``max_len`` 2048 and
+    32 greedy decode steps: K/V bytes a rank (half the (1, 1) mesh's, held),
+    ``max_memory_allocated`` a rank, and how many tokens equal the (1, 1)
+    mesh's (reported: bf16 reductions in another order may fork a token).
+    (a) mamba2-780m at full width and depth, bf16, ``remat`` on, 4 x 1024
+    tokens: one warm ``make_train_step`` per rank, 96 ``ssd_scan`` launches
+    (48 layers, forward and recompute) on 24 heads and 48 plain backwards,
+    each rank's ``max_memory_allocated``."""
     import os
     import socket
 
@@ -2127,11 +2290,12 @@ def phase_tp() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         errs["ssd_scan", dtype] = check_ssd(TP_SSD_SHAPE, dtype, seed=11)
         errs["flash_attention", dtype] = check_fa(TP_FA_SHAPE, dtype, seed=12)[0]
-    kernels = {"ssd_scan": {"shape": TP_SSD_SHAPE, **{str(dt).split(".")[1]: {"max_abs_err": errs["ssd_scan", dt], **t}
-                                                     for dt, t in time_ssd(TP_SSD_SHAPE).items()}},
-               "flash_attention": {"shape": TP_FA_SHAPE,
-                                   **{str(dt).split(".")[1]: {"max_abs_err": errs["flash_attention", dt], **t}
-                                      for dt, t in time_fa(TP_FA_SHAPE).items()}}}
+        errs["flash_attention_vlm", dtype] = check_fa(TP_FA_VLM_SHAPE, dtype, seed=13)[0]
+    kernels = {name: {"shape": shape, **{str(dt).split(".")[1]: {"max_abs_err": errs[name, dt], **t}
+                                         for dt, t in timer(shape).items()}}
+               for name, shape, timer in (("ssd_scan", TP_SSD_SHAPE, time_ssd),
+                                          ("flash_attention", TP_FA_SHAPE, time_fa),
+                                          ("flash_attention_vlm", TP_FA_VLM_SHAPE, time_fa))}
 
     with tempfile.TemporaryDirectory() as tmp:
         mesh = make_host_mesh()  # the (1, 1) reference
@@ -2141,6 +2305,17 @@ def phase_tp() -> dict:
                        | {"grads": {n: g.cpu() for n, g in ref["grads"].items()}}, f"{tmp}/{name}.pt")
             del ref
             torch.cuda.empty_cache()
+        for name, layers in TP_DECODE_TWINS:
+            cfg = tp_twin_cfg(name, layers, "xla")
+            torch.save(tp_serve_run(cfg, mesh, *tp_decode_batch(cfg), TP_DECODE["steps"]), f"{tmp}/decode_{name}.pt")
+            torch.cuda.empty_cache()
+        cfg = tp_serve_cfg()
+        serve = tp_serve_run(cfg, mesh, tp_serve_batch(cfg), TP_SERVE["max_len"], TP_SERVE["steps"], record=False)
+        torch.save({k: serve.pop(k) for k in ("first_logits", "margins")} | {"tokens": serve["tokens"]},
+                   f"{tmp}/serve.pt")
+        serve.pop("steps")
+        serve["tokens"] = serve["tokens"].numel()
+        torch.cuda.empty_cache()
         torch.distributed.destroy_process_group()  # make_host_mesh started it
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
@@ -2178,9 +2353,25 @@ def phase_tp() -> dict:
                      "flash_attention": tcfg.num_heads // TP_SIZE if twin["attention_impl"] == "flash" else None}
             # each rank launches each kernel as often as the (1, 1) step, on its own heads
             idle = any(twin["launches"][k][0] == 0 for k, h in local.items() if h)
-            if twin["launches"] != twin["launches_1x1"] or idle or any(h[1] != local[h[0]] for h in twin["heads"]):
+            wrong = [h for h in twin["heads"]
+                     if h[1] != local[h[0]] or h[0] == "flash_attention" and h[2] != tcfg.num_kv_heads // TP_SIZE]
+            if twin["launches"] != twin["launches_1x1"] or idle or wrong:
                 fail(f"phase_tp rank {r['rank']} {name}: launches {twin['launches']}, on (1, 1) "
                      f"{twin['launches_1x1']}, heads {twin['heads']}, expected {local}")
+        for name, d in r["decode"].items():
+            tcfg = ARCHS[name]
+            half = (d["max_len"] + (tcfg.num_patches if tcfg.family == "vlm" else 0)) // TP_SIZE
+            ssd = tcfg.ssm_num_heads // TP_SIZE if tcfg.ssm_state else None
+            if max(d["logits_rel"] + d["cache_rel"]) > TP_DECODE_BAR or not all(d["next_equal"]) \
+                    or not d["pos"] < half <= d["pos"] + TP_DECODE["steps"] - 1 \
+                    or d["k_local"] != [*d["k_local_1x1"][:2], half, *d["k_local_1x1"][3:]] \
+                    or d["k_placements"] != ["R", "S(2)"] or d["prefill_launches"] != d["prefill_launches_1x1"] \
+                    or (d["prefill_launches"]["ssd_scan"][0] > 0) != bool(ssd) \
+                    or any(h[1] != ssd for h in d["heads"]):
+                fail(f"phase_tp rank {r['rank']} f32 decode twin {name}: {d} (bar {TP_DECODE_BAR}, shard {half})")
+        if r["serve"]["kv_bytes"] * TP_SIZE != serve["kv_bytes"]:
+            fail(f"phase_tp rank {r['rank']} serving: {r['serve']['kv_bytes']} K/V bytes against {serve['kv_bytes']}"
+                 " on (1, 1)")
         full = r["full"]
         want = {"ssd_scan": remat_launches(cfg, cfg.num_layers), "flash_attention": [0, 0]}
         if full["launches"] != want or full["heads"] != [["ssd_scan", cfg.ssm_num_heads // TP_SIZE, "torch.bfloat16"]] \
@@ -2189,6 +2380,10 @@ def phase_tp() -> dict:
     return {"phase": "tp", "mesh": ranks[0]["mesh"], "backend": "gloo over CUDA tensors (two ranks on one card)",
             "probe": ranks[0]["probe"], "kernels_at_local_shapes": kernels,
             "twins": {r["rank"]: r["twins"] for r in ranks},
+            "decode_twins": {r["rank"]: r["decode"] for r in ranks},
+            "serve": {"arch": "qwen2.5-3b", **TP_SERVE, "dtype": "bfloat16", "1x1": serve,
+                      "note": "host times stage every collective through host memory: not TP's speed",
+                      **{r["rank"]: r["serve"] for r in ranks}},
             "full": {"arch": cfg.name, "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]],
                      "remat": cfg.remat,
                      "note": "step_ms_gloo stages every collective through host memory: not TP's speed",
@@ -2263,9 +2458,14 @@ def main() -> None:
         ssd_row["launches_by_path"][f"mamba2_tp_train_rank{rank}"] = tp["full"][rank]["launches"]["ssd_scan"][0]
         for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row)):
             row["launches_by_path"][f"tp_twins_rank{rank}"] = sum(t["launches"][name][0] for t in twins.values())
+            row["launches_by_path"][f"tp_decode_twins_rank{rank}"] = sum(
+                d["prefill_launches"][name][0] for d in tp["decode_twins"][rank].values())
     for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row)):  # the plain recomputes in training
         row["backwards_by_path"] = {k: v[name][1] for k, v in train_launches.items()}
         row["tp_local_shape"] = tp["kernels_at_local_shapes"][name]
+    fa_row["tp_vlm_local_shape"] = tp["kernels_at_local_shapes"]["flash_attention_vlm"]
+    fa_row["launches_by_rank_vlm_twin"] = {rank: twins["internvl2-26b"]["launches"]["flash_attention"]
+                                           for rank, twins in tp["twins"].items()}
     ssd_row["train_plain_backward"] = train["plain_backward"]
     for row in (ssd_row, fa_row):
         row["launches"] = sum(row["launches_by_path"].values())

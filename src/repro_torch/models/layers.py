@@ -13,7 +13,9 @@ the ``Attention``, ``MLP`` and ``Embedding`` modules it runs
 (``train/step.py``) and hands each its model-axis shards: q heads (and kv
 heads where they divide the axis), FFN hidden columns and vocabulary rows.
 The layer then computes only those and joins the partial results over the
-group.  With ``tp_group`` None (every module ``init_params`` builds) each
+group.  A sharded decode also sets ``seq_split`` on each ``Attention`` where
+its K/V cache is split over the sequence (``attention_decode``).  With
+``tp_group`` and ``seq_split`` None (every module ``init_params`` builds) each
 function runs the ops it ran before.
 """
 from __future__ import annotations
@@ -138,6 +140,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ----------------------------------------------------------------- attention
 class Attention(nn.Module):
     tp_group: tp.Group | None = None
+    seq_split: tp.SeqSplit | None = None  # a sharded decode's cache shard (``attention_decode``)
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
         super().__init__()
@@ -323,28 +326,59 @@ def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict
 
     cache = {"k": (B, Smax, K, D), "v": same}; pos: the current length.  The
     new K/V row is written into ``cache`` in place (the reference returns
-    updated copies); ``decode_step`` hands each layer a fresh copy.  Not under
-    TP: a sharded K/V decode is ROADMAP P5's remainder.
+    updated copies); ``decode_step`` hands each layer a fresh copy.
+
+    Sharded (``train/step.py::make_decode_step``), the cache holds every kv head
+    and either the whole sequence or, with ``p.seq_split``, the rank's shard of
+    it (global positions ``offset`` to ``offset + Smax``), as the reference's
+    ``cache_specs`` place it:
+
+    - (a) the sequence whole under ``p.tp_group`` alone: head-parallel, as
+      ``attention``: the rank's q heads over the kv heads they read, its ``wo``
+      rows, then ``tp.reduce``;
+    - (b) the sequence split: every q head (gathered over the group under TP)
+      over the rank's positions, masked by their global positions; the partial
+      softmaxes are joined over the axes that split the sequence
+      (``tp.softmax_combine``), then the rank's own heads go through its ``wo``
+      rows (the whole ``wo`` without a group).  Only the rank whose shard holds
+      ``pos`` writes the new row.
     """
-    if p.tp_group is not None:
-        raise NotImplementedError("decode with a K/V cache under tensor parallelism (ROADMAP P5b)")
     cd = _dtype(cfg.compute_dtype)
+    g, split = p.tp_group, p.seq_split
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x.to(cd), positions)
+    q, k_new, v_new = _project_qkv(cfg, p, x.to(cd), positions, whole_kv=True)
+    if g is not None and cfg.num_kv_heads % g.size == 0:
+        k_new, v_new = tp.gather(k_new, 2, g), tp.gather(v_new, 2, g)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     smax, d = k_cache.shape[1], k_cache.shape[3]
-    logits = torch.einsum("bqhd,bshd->bhqs", q, k_cache.to(cd)[:, :, p.kvm, :]).to(torch.float32)
+    offset = 0 if split is None else split.offset
+    if offset <= pos < offset + smax:
+        k_cache[:, pos - offset] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, pos - offset] = v_new[:, 0].to(v_cache.dtype)
+    ks, vs, kvm = k_cache, v_cache, p.kvm
+    if split is not None:
+        q, kvm = tp.gather(q, 2, g), split.kvm
+    elif g is not None:
+        _, lo, kl = kv_heads_read(cfg, g)
+        ks, vs = k_cache[:, :, lo:lo + kl], v_cache[:, :, lo:lo + kl]
+    logits = torch.einsum("bqhd,bshd->bhqs", q, ks.to(cd)[:, :, kvm, :]).to(torch.float32)
     logits = logits * d**-0.5
-    kpos = torch.arange(smax, device=x.device)[None, :]
+    kpos = torch.arange(smax, device=x.device)[None, :] + offset
     valid = kpos <= pos
     if cfg.sliding_window:
         valid &= kpos > pos - cfg.sliding_window
     logits = torch.where(valid[None, None], logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(cd)
-    out = torch.einsum("bhqs,bshd->bqhd", probs, v_cache.to(cd)[:, :, p.kvm, :])
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd))
+    if split is None:
+        probs = torch.softmax(logits, dim=-1).to(cd)
+        out = torch.einsum("bhqs,bshd->bqhd", probs, vs.to(cd)[:, :, kvm, :])
+    else:
+        top = logits.amax(dim=-1)  # (B, H, 1)
+        e = torch.exp(logits - top[..., None])
+        o = torch.einsum("bhqs,bshd->bqhd", e.to(cd), vs.to(cd)[:, :, kvm, :]).to(torch.float32)
+        out = tp.softmax_combine(top, e.sum(dim=-1), o, split.groups).to(cd)
+        if g is not None:
+            out = tp.part(out, 2, g)
+    y = tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), g)
     return y, {"k": k_cache, "v": v_cache}
 
 

@@ -24,9 +24,13 @@ With ``attention_impl="flash"`` the full-sequence attention of ``forward``
 ``decode_step`` use the plain attention whatever it says, as the reference does.
 
 Under tensor parallelism (the modules' ``tp_group``, set by ``train/step.py``
-for the ssm, dense and hybrid families) ``forward`` returns this rank's
+for the ssm, dense, hybrid and vlm families) ``forward`` returns this rank's
 vocabulary columns of the logits, which ``loss_fn`` and ``nll_sum`` take as
-they are; ``prefill`` and ``decode_step`` (ssm) gather them over the group.
+they are; ``prefill`` and ``decode_step`` gather them over the group.  A vlm's
+patch prefix joins the residual stream after the vocab-parallel embedding,
+which is whole on every rank, and leaves it before the unembedding.  In a
+sharded decode the K/V leaves may hold the rank's shard of the sequence
+(``Attention.seq_split``), while ``pos`` stays global.
 """
 from __future__ import annotations
 
@@ -263,7 +267,10 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
     """One-token decode.  tokens: (B, 1) -> (logits (B,1,V), new cache).
 
     The input cache is left as it was: the new K/V are one copy per step,
-    into which each attention block writes its row in place.
+    into which each attention block writes its row in place.  ``pos`` is the
+    global position; in a sharded decode each K/V leaf (the hybrid: each
+    site's) may be the rank's sequence shard, which ``attention_decode`` reads
+    through its attention's ``seq_split``.
     """
     _check(cfg, params)
     x = embed(cfg, params.embedding, tokens)

@@ -19,8 +19,10 @@ over the group:
 - :func:`gather`: all-gather forward, the rank's slice backward.
 
 :func:`embed_lookup` and :func:`nll_sum` are the vocab-parallel embedding and
-token loss.  Every collective is a ``torch.distributed._functional_collectives``
-op (``_c10d_functional``), the namespace ``launch/dryrun.py``'s census prices
+token loss.  :func:`softmax_combine` joins the partial softmaxes of a decode
+that attends over a sequence-sharded K/V cache, one shard a rank.  Every
+collective is a ``torch.distributed._functional_collectives`` op
+(``_c10d_functional``), the namespace ``launch/dryrun.py``'s census prices
 (but an all-gather of CUDA tensors over ``gloo``: see ``_all_gather``).
 Each op takes the model axis's :class:`Group` explicitly; with ``None`` it is
 the identity and issues nothing, so a step without TP runs the ops it ran before.
@@ -158,3 +160,35 @@ def nll_sum(logits: torch.Tensor, labels: torch.Tensor, g: Group) -> tuple[torch
     logz = top + sums[0].log()
     mask = (labels >= 0).to(torch.float32)
     return ((logz - sums[1]) * mask).sum(), mask.sum()
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A K/V cache whose sequence is split over mesh axes, as one rank holds it:
+    ``offset`` is the global position of its first row, ``groups`` the axes that
+    split the sequence in mesh order (``"model"`` and, where ``rules.cache_specs``
+    puts them there, the data axes), and ``kvm`` every q head's kv head on the
+    cache's device (``layers.kv_head_map``): the rank attends with all q heads."""
+
+    offset: int
+    groups: tuple
+    kvm: torch.Tensor
+
+
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, groups) -> torch.Tensor:
+    """The attention output over a sequence split over ``groups``, from each rank's
+    partial statistics over its own positions, all float32: the running max ``m``
+    (B, H, 1), the sum of exponentials ``l`` (B, H, 1) and the unnormalised output
+    ``o`` (B, 1, H, D).  The max is all-reduced over each group in turn, each
+    rank's ``l`` and ``o`` rescaled by ``exp(m_r - m)``, and the sums all-reduced
+    over each group in turn (one reduction after another over the axes equals one
+    over their product).  A rank whose positions are all masked has ``m_r`` at
+    -1e30, so its weight, and what it adds, is exactly 0."""
+    top = m
+    for g in groups:
+        top = _all_reduce(top, g, "max")
+    w = torch.exp(m - top).transpose(1, 2)[..., None]  # (B, 1, H, 1)
+    both = torch.cat([o * w, l.transpose(1, 2)[..., None] * w], dim=-1)
+    for g in groups:
+        both = _all_reduce(both, g)
+    return both[..., :-1] / both[..., -1:]

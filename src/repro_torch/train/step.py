@@ -21,15 +21,16 @@ AdamW state live between steps as DTensors in the placements of
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps over
 the same placements, with the cache in ``rules.cache_specs``'.  Each rank
 runs the model on its rows of the batch (the data axes).  Where the model
-axis is wider than 1 (``baseline``, ``replicated-weights``) the ssm, dense
-and hybrid families' train and prefill steps, and the ssm family's decode
-step, are tensor parallel over it (``sharding/tp.py``): each leaf is gathered
-over the data axes only, each rank keeps its model-axis shard and computes
-only its heads, hidden columns and vocabulary slice.  The other families
-(moe, vlm, encdec) and the K/V decode steps gather every leaf whole, so the
-ranks of one model-axis group compute the same rows (ROADMAP P5b).  The
-abstract trees (``abstract_params``, ``abstract_opt_state``,
-``abstract_cache``) are the same trees on the ``meta`` device.
+axis is wider than 1 (``baseline``, ``replicated-weights``) the steps of the
+families in ``TP_FAMILIES`` are tensor parallel over it (``sharding/tp.py``):
+each leaf is gathered over the data axes only, each rank keeps its model-axis
+shard and computes only its heads, hidden columns and vocabulary slice.  Their
+decode steps keep the K/V cache in its placements, each rank attending over
+its own shard of the sequence.  The moe and encdec families gather every leaf
+whole, so the ranks of one model-axis group compute the same rows, and their
+decode makes its K/V whole over the sequence (ROADMAP P5c).  The abstract
+trees (``abstract_params``, ``abstract_opt_state``, ``abstract_cache``) are
+the same trees on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from torch.utils._pytree import tree_map
 from repro_torch.convert import STACKED
 from repro_torch.models import get_model
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import Attention, kv_map
+from repro_torch.models.layers import Attention, kv_head_map, kv_map
 from repro_torch.models.transformer import nll_sum
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules, tp
@@ -170,7 +171,8 @@ def make_train_fn(cfg: ArchConfig, ocfg: adamw.AdamWConfig | None = None, *, com
 
 
 # the families whose steps are tensor parallel over the model axis, by step kind
-TP_FAMILIES = {"train": ("ssm", "dense", "hybrid"), "prefill": ("ssm", "dense", "hybrid"), "decode": ("ssm",)}
+TP_FAMILIES = {"train": ("ssm", "dense", "hybrid", "vlm"), "prefill": ("ssm", "dense", "hybrid", "vlm"),
+               "decode": ("ssm", "dense", "hybrid", "vlm")}
 
 
 def model_group(cfg: ArchConfig, mesh, layout: str, step: str) -> tp.Group | None:
@@ -186,7 +188,7 @@ def model_group(cfg: ArchConfig, mesh, layout: str, step: str) -> tp.Group | Non
     dims = [cfg.vocab_padded]
     if cfg.family in ("ssm", "hybrid"):
         dims.append(cfg.ssm_num_heads)
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "hybrid", "vlm"):
         dims += [cfg.num_heads, cfg.d_ff]
     if any(v % size for v in dims):
         return None
@@ -236,24 +238,42 @@ def _rows(cfg: ArchConfig, mesh, batch: dict[str, torch.Tensor], layout: str) ->
     return rows, rules.to_placements(bspecs["tokens"], mesh)
 
 
-def _cache_rows(mesh, cache: dict, tokens: list, g: tp.Group | None) -> dict:
+def _cache_rows(mesh, cache: dict, tokens: list, g: tp.Group | None, kv: list | None = None) -> dict:
     """The placements of each cache leaf held as this rank's batch rows: the batch
     (dim 1) split where the tokens' rows are, every other dim whole, but under TP
-    the SSM state's heads (dim 2) split over the model axis, as the rank holds them."""
+    the SSM state's heads (dim 2) split over the model axis, as the rank holds them.
+    ``kv``, where given, are the K/V leaves' placements, kept as they are (a decode
+    over the cache's sequence shards)."""
     def rows(t, heads=False):
         return [Shard(2) if heads and a == "model" else Shard(1) if isinstance(pl, Shard) and t.ndim > 1
                 else Replicate() for a, pl in zip(mesh.mesh_dim_names, tokens)]
 
-    return {k: {n: rows(t, g is not None and n == "state") for n, t in v.items()} if isinstance(v, dict) else rows(v)
-            for k, v in cache.items()}
+    def leaf(n, t):
+        return kv if kv is not None and n in ("k", "v") else rows(t, g is not None and n == "state")
+
+    return {k: {n: leaf(n, t) for n, t in v.items()} if isinstance(v, dict) else leaf(k, v) for k, v in cache.items()}
 
 
-def _place_cache(cfg: ArchConfig, mesh, local: dict, tokens: list, layout: str, g: tp.Group | None) -> dict:
-    """This rank's cache rows as DTensors in ``rules.cache_specs``' placements."""
-    rows = tree_map(lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False), local,
-                    _cache_rows(mesh, local, tokens, g))
+def _place_cache(cfg: ArchConfig, mesh, local: dict, held: dict, layout: str) -> dict:
+    """This rank's cache, held in ``held``'s placements (``_cache_rows``), as DTensors
+    in ``rules.cache_specs``' placements."""
+    rows = tree_map(lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False), local, held)
     shardings = rules.to_shardings(mesh, rules.cache_specs(cfg, mesh, rows, layout))
     return tree_map(lambda t, s: t.redistribute(mesh, s.placements), rows, shardings)
+
+
+def _seq_split(mesh, placements: list, local_len: int, kvm: torch.Tensor) -> tp.SeqSplit | None:
+    """This rank's shard of a K/V cache whose sequence (dim 2) ``placements`` split
+    over one or more mesh dims, which take it in mesh order (``rules.to_placements``),
+    or None where the sequence is whole on the rank."""
+    dims = [i for i, pl in enumerate(placements) if pl == Shard(2) and mesh.size(i) > 1]
+    if not dims:
+        return None
+    index = 0
+    for i in dims:
+        index = index * mesh.size(i) + mesh.get_local_rank(i)
+    groups = tuple(tp.Group(mesh.get_group(i), mesh.get_local_rank(i), mesh.size(i)) for i in dims)
+    return tp.SeqSplit(index * local_len, groups, kvm)
 
 
 def _gather(params: dict[str, DTensor], keep: dict[str, list] | None) -> dict[str, torch.Tensor]:
@@ -393,12 +413,14 @@ def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, *, layout: str = "bas
 
     ``step(params, batch)`` takes params as DTensors in ``pspecs`` and the
     global batch.  Each rank gathers every param whole (``full_tensor``), or
-    under TP (``model_group``: the ssm, dense and hybrid families) over the
-    data axes only, keeping its model-axis shards, and prefills its rows of
-    the batch (``rules.batch_specs``).  It returns the last-position logits
-    (over the whole vocabulary) as a DTensor split like the tokens' rows, and
-    the cache as DTensors in ``rules.cache_specs``' placements: under TP each
-    rank's SSM state holds its heads, and K/V are gathered over the heads."""
+    under TP (``model_group``: the families of ``TP_FAMILIES["prefill"]``; moe
+    and encdec wait for P5c) over the data axes only, keeping its model-axis
+    shards, and prefills its rows of the batch (``rules.batch_specs``).  It
+    returns the last-position logits (over the whole vocabulary) as a DTensor
+    split like the tokens' rows, and the cache as DTensors in
+    ``rules.cache_specs``' placements: under TP each rank's SSM state holds its
+    heads, and K/V are gathered over the heads, then cut into the sequence
+    shards the specs give (a vlm's sequence holds its patch prefix too)."""
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
     group = model_group(cfg, mesh, layout, "prefill")
@@ -411,7 +433,7 @@ def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, *, layout: str = "bas
         logits, cache = torch.func.functional_call(run, full, (rows,))
         del full
         return (DTensor.from_local(logits, mesh, tokens, run_check=False),
-                _place_cache(cfg, mesh, cache, tokens, layout, group))
+                _place_cache(cfg, mesh, cache, _cache_rows(mesh, cache, tokens, group), layout))
 
     return step, params_shape, pspecs
 
@@ -422,27 +444,39 @@ def make_decode_step(cfg: ArchConfig, mesh, *, layout: str = "baseline"):
 
     ``step(params, cache, tokens)`` takes params as DTensors in ``pspecs``,
     the cache as DTensors in ``rules.cache_specs``' placements and the
-    global (B, 1) tokens.  Each rank takes its batch rows of every cache leaf
-    and decodes its rows.  Under TP (``model_group``: the ssm family) it
-    keeps its model-axis shards of the params and its heads of the SSM state;
-    otherwise it gathers every param whole, and a sequence-sharded K/V or a
-    head-sharded SSM state becomes whole on the rank (ROADMAP P5b).  It
-    returns the next tokens as a DTensor split like the tokens' rows, and the
-    new cache scattered back into ``rules.cache_specs``' placements."""
+    global (B, 1) tokens.  Each rank decodes its rows of the batch.  In the
+    families of ``TP_FAMILIES["decode"]`` each rank keeps its K/V leaves as the
+    specs place them, its batch rows and its shard of the sequence: where the
+    sequence is split (over ``"model"``, or over the data axes too where the
+    batch does not divide them), each attention attends over the rank's shard
+    and the softmax statistics are combined over the axes that split it
+    (``layers.attention_decode``).  Under TP (``model_group``) the rank also
+    keeps its model-axis shards of the params and its heads of the SSM state.
+    The moe and encdec families gather every param whole, and make a
+    sequence-sharded K/V or a head-sharded SSM state whole on the rank (ROADMAP
+    P5c).  It returns the next tokens as a DTensor split like the tokens' rows,
+    and the new cache in ``rules.cache_specs``' placements."""
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
     group = model_group(cfg, mesh, layout, "decode")
-    run = _Apply(_shell(cfg, mesh.device_type, group), make_decode_fn(cfg))
+    shell = _shell(cfg, mesh.device_type, group)
+    run = _Apply(shell, make_decode_fn(cfg))
     keep = _keep_model(mesh, pspecs, group)
+    attns = [mod for mod in shell.modules() if isinstance(mod, Attention)]
+    kvm = kv_head_map(cfg.num_heads, cfg.num_kv_heads, cfg.orig_num_heads).to(mesh.device_type) if attns else None
 
     def step(params: dict[str, DTensor], cache: dict, tokens: torch.Tensor):
         rows, placements = _rows(cfg, mesh, {"tokens": tokens}, layout)
-        local = tree_map(lambda t, pl: t.redistribute(mesh, pl).to_local(), cache,
-                         _cache_rows(mesh, cache, placements, group))
+        kv = list(cache["k"].placements) if cfg.family in TP_FAMILIES["decode"] and "k" in cache else None
+        held = _cache_rows(mesh, cache, placements, group, kv)
+        local = tree_map(lambda t, pl: t.redistribute(mesh, pl).to_local(), cache, held)
+        split = None if kv is None else _seq_split(mesh, kv, local["k"].shape[2], kvm)
+        for mod in attns:
+            mod.seq_split = split
         full = _gather(params, keep)
         next_tok, new_cache = torch.func.functional_call(run, full, (local, rows["tokens"]))
         del full, local
         return (DTensor.from_local(next_tok, mesh, placements, run_check=False),
-                _place_cache(cfg, mesh, new_cache, placements, layout, group))
+                _place_cache(cfg, mesh, new_cache, held, layout))
 
     return step, params_shape, pspecs
