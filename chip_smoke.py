@@ -51,16 +51,19 @@ with random weights from seed 0, and checks that each went through its kernel:
 - tensor parallelism (``phase_tp``): two processes on the card as the (1, 2)
   mesh, a ``gloo`` group over CUDA tensors (probed first): ``ssd_scan`` and
   ``flash_attention`` held against their plain versions at one rank's local
-  shapes (qwen2.5-3b's and internvl2-26b's flash); f32 twins of mamba2-780m,
-  qwen2.5-3b (flash), zamba2-2.7b and internvl2-26b (flash), depth cut,
-  whose prefill and ``make_train_step`` on the (1, 2) mesh match the (1, 1)
-  mesh's; f32 decode twins of qwen2.5-3b, zamba2-2.7b and internvl2-26b,
-  each rank attending over its half of the K/V cache's sequence, whose
-  greedy decode matches the (1, 1) mesh's across the shard boundary;
-  qwen2.5-3b at full width and depth serving 4 x 1024 tokens in bf16 on both
-  meshes (K/V bytes and memory a rank); and mamba2-780m at full width and
-  depth taking one warm step per rank (96 ``ssd_scan`` launches on 24 of its
-  48 heads);
+  shapes (qwen2.5-3b's, internvl2-26b's and deepseek-moe-16b's flash); f32
+  twins of every family, depth cut (mamba2-780m, qwen2.5-3b, zamba2-2.7b,
+  internvl2-26b and deepseek-moe-16b through flash, whisper-medium), whose
+  prefill and ``make_train_step`` on the (1, 2) mesh match the (1, 1) mesh's,
+  MoE routing compared token by token; f32 decode twins of qwen2.5-3b,
+  zamba2-2.7b, internvl2-26b, deepseek-moe-16b and whisper-medium, each rank
+  attending over its half of the K/V cache's sequence (and of whisper's
+  encoder frames), whose greedy decode matches the (1, 1) mesh's across the
+  shard boundary; qwen2.5-3b (4 x 1024 tokens) and whisper-medium (4 x 256,
+  1500 frames) at full width and depth serving in bf16 on both meshes (K/V
+  bytes and memory a rank); and mamba2-780m at full width and depth and
+  deepseek-moe-16b at 2 of its layers taking one warm step per rank (96
+  ``ssd_scan`` launches on 24 of 48 heads; flash on 8 of 16 heads);
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -1917,19 +1920,29 @@ TP_SIZE = 2  # the (1, 2) mesh of phase_tp: two ranks on the one card
 TP_SSD_SHAPE = {**SERVE_SHAPE, "h": SERVE_SHAPE["h"] // TP_SIZE}  # mamba2-780m's scan on one rank's 24 heads
 TP_FA_SHAPE = {**FA_FORWARD_SHAPE, "h": FA_FORWARD_SHAPE["h"] // TP_SIZE, "kh": FA_FORWARD_SHAPE["kh"] // TP_SIZE}
 TP_FA_VLM_SHAPE = dict(b=4, s=1024, h=48 // TP_SIZE, kh=8 // TP_SIZE, d=128)  # internvl2-26b's flash on one rank
+TP_FA_MOE_SHAPE = dict(b=4, s=1024, h=16 // TP_SIZE, kh=16 // TP_SIZE, d=128)  # deepseek-moe-16b's flash on one rank
 TP_TWIN_DATA = dict(seq_len=512, global_batch=2, seed=1)  # the f32 twins' batch, as check_train_f32's
-# (arch, layers, attention_impl) of each f32 twin: zamba2 keeps the 6 layers that reach its shared block
+# (arch, layers, attention_impl) of each f32 twin: zamba2 keeps the 6 layers that reach its shared block;
+# whisper keeps as many encoder layers as decoder layers and runs the plain attention, as the reference
 TP_TWINS = (("mamba2-780m", TRAIN_RESTART_LAYERS, "xla"), ("qwen2.5-3b", TRAIN_RESTART_LAYERS, "flash"),
-            ("zamba2-2.7b", ZAMBA2_TRAIN_LAYERS, "flash"), ("internvl2-26b", TRAIN_RESTART_LAYERS, "flash"))
+            ("zamba2-2.7b", ZAMBA2_TRAIN_LAYERS, "flash"), ("internvl2-26b", TRAIN_RESTART_LAYERS, "flash"),
+            ("deepseek-moe-16b", TRAIN_RESTART_LAYERS, "flash"), ("whisper-medium", TRAIN_RESTART_LAYERS, "xla"))
 TP_GRAD_BAR = 1e-3  # each leaf's gradient and each prefill leaf, of the leaf's largest; phase_train's bars
 # (arch, layers) of each f32 decode twin, and their batch: a prompt of 28 tokens (after a vlm's 256
 # patches) in a sequence of 2 x (prefix + 28 + 4), so that the 5th of 8 decode steps writes the first
 # row of the second rank's shard
 TP_DECODE_TWINS = (("qwen2.5-3b", TRAIN_RESTART_LAYERS), ("zamba2-2.7b", ZAMBA2_TRAIN_LAYERS),
-                   ("internvl2-26b", TRAIN_RESTART_LAYERS))
+                   ("internvl2-26b", TRAIN_RESTART_LAYERS), ("deepseek-moe-16b", TRAIN_RESTART_LAYERS),
+                   ("whisper-medium", TRAIN_RESTART_LAYERS))
 TP_DECODE = dict(batch=2, prompt=28, steps=8)
 TP_DECODE_BAR = 1e-4  # each step's logits, of the logit scale, and each new cache leaf, of its largest
 TP_SERVE = dict(batch=4, prompt=1024, max_len=2048, steps=32)  # qwen2.5-3b, full width and depth, bf16
+TP_SERVE_WHISPER = dict(batch=4, prompt=256, max_len=512, steps=32)  # whisper-medium, 24 + 24 layers, 1500 frames
+# deepseek-moe-16b's full-width step on (1, 2): 2 of its 28 layers.  At 4 each rank peaked at 38.9 GB (f32
+# leaves, AdamW moments, gradients and the update's temporaries), and two such ranks beside this process's own
+# allocations filled the card
+TP_MOE_LAYERS = 2
+TP_ROUTER_TIE = 1e-5  # a MoE twin's routing may differ from (1, 1) only where its probabilities lie this close
 
 
 def tp_cfg(cfg):
@@ -1941,10 +1954,13 @@ def tp_cfg(cfg):
 
 
 def tp_twin_cfg(name: str, layers: int, impl: str):
-    """The f32 twin of ``name`` at ``layers``, padded for the (1, 2) mesh."""
+    """The f32 twin of ``name`` at ``layers`` (an encoder-decoder's encoder too),
+    padded for the (1, 2) mesh."""
     from repro_torch.configs import ARCHS
 
-    return tp_cfg(dataclasses.replace(ARCHS[name], num_layers=layers, compute_dtype="float32", attention_impl=impl))
+    cfg = ARCHS[name]
+    depth = {"num_layers": layers, **({"encoder_layers": layers} if cfg.family == "encdec" else {})}
+    return tp_cfg(dataclasses.replace(cfg, **depth, compute_dtype="float32", attention_impl=impl))
 
 
 def tp_whole(t) -> torch.Tensor:
@@ -1962,11 +1978,47 @@ def tp_whole(t) -> torch.Tensor:
     return local
 
 
+@contextlib.contextmanager
+def tp_routing(record: list):
+    """Each MoE routing while open (``models/moe.py::route``), in call order: the
+    top-k experts and the k + 1 largest probabilities of every token, on the host."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def spy(cfg, p, xt):
+        out = route(cfg, p, xt)
+        record.append({"topi": out[2].cpu(), "top": out[0].topk(cfg.top_k + 1, dim=-1).values.cpu()})
+        return out
+
+    moe.route = spy
+    try:
+        yield record
+    finally:
+        moe.route = route
+
+
+def tp_routing_diff(got: list, ref: list) -> dict:
+    """Where two runs' MoE routings differ: the tokens whose top-k experts differ
+    and, at each, the reference run's smallest gap between its k + 1 largest
+    probabilities (a flip where that gap is tiny is a near-tie)."""
+    if len(got) != len(ref):
+        return {"calls": [len(got), len(ref)], "flips": None, "margins": None}
+    margins = []
+    for g, r in zip(got, ref):
+        differ = (g["topi"] != r["topi"]).any(dim=-1)
+        gaps = (r["top"][..., :-1] - r["top"][..., 1:]).amin(dim=-1)
+        margins += gaps[differ].tolist()
+    return {"calls": len(got), "tokens": sum(r["topi"][..., 0].numel() for r in ref), "flips": len(margins),
+            "margins": margins}
+
+
 def tp_twin_run(cfg, mesh) -> dict:
     """A prefill of TP_TWIN_DATA's tokens, then one make_train_step on the batch, over
     ``mesh``, from seed 0's params: the logits and every cache leaf (each rank's
-    whole view), the metrics, the gradients AdamW was given (this rank's shards)
-    and each kernel's launches and plain backwards in the step."""
+    whole view), the metrics, the gradients AdamW was given (this rank's shards),
+    each kernel's launches and plain backwards in the step, and every MoE
+    routing of both (``tp_routing``)."""
     from repro_torch.models import get_model
     from repro_torch.optim import adamw
     from repro_torch.sharding import rules
@@ -1980,7 +2032,9 @@ def tp_twin_run(cfg, mesh) -> dict:
     opt = rules.distribute(adamw.init(model), ospecs)
     del model
     prefill, _, _ = make_prefill_step(cfg, mesh, TP_TWIN_DATA["seq_len"])
-    logits, cache = prefill(params, {k: v for k, v in batch.items() if k != "labels"})
+    routing = []
+    with tp_routing(routing):
+        logits, cache = prefill(params, {k: v for k, v in batch.items() if k != "labels"})
     flat = {"logits": tp_whole(logits)}
     flat.update({f"cache/{k}": tp_whole(v) for k, v in cache.items() if not isinstance(v, dict)})
     flat.update({f"cache/ssm/{k}": tp_whole(v) for k, v in cache.get("ssm", {}).items()})
@@ -1994,17 +2048,19 @@ def tp_twin_run(cfg, mesh) -> dict:
     adamw.update = spy
     try:
         zero_counts()
-        _, _, metrics = step(params, opt, batch)
+        with tp_routing(routing):
+            _, _, metrics = step(params, opt, batch)
         torch.cuda.synchronize()
         counts = kernel_counts()
     finally:
         adamw.update = update
     return {"serve": flat, "metrics": {k: v.item() for k, v in metrics.items()}, "grads": dict(seen),
-            "launches": counts, "specs": {n: s.spec for n, s in pspecs.items()}}
+            "launches": counts, "specs": {n: s.spec for n, s in pspecs.items()}, "routing": routing}
 
 
 def tp_decode_batch(cfg) -> tuple[dict, int]:
-    """A decode twin's prompt (TP_DECODE, a vlm's patch embeddings first) and the
+    """A decode twin's prompt (TP_DECODE, a vlm's patch embeddings first, an
+    encoder-decoder's ``encoder_frames`` frame embeddings beside it) and the
     ``max_len`` that makes its sequence 2 x (prefix + prompt + 4) long."""
     g = torch.Generator(device="cuda").manual_seed(3)
     b, p = TP_DECODE["batch"], TP_DECODE["prompt"]
@@ -2012,35 +2068,37 @@ def tp_decode_batch(cfg) -> tuple[dict, int]:
     prefix = cfg.num_patches if cfg.family == "vlm" else 0
     if prefix:
         batch["patch_embeds"] = 0.02 * torch.randn((b, prefix, cfg.d_model), generator=g, device="cuda")
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = 0.02 * torch.randn((b, cfg.encoder_frames, cfg.d_model), generator=g, device="cuda")
     return batch, 2 * (prefix + p + 4) - prefix
 
 
 def tp_serve_run(cfg, mesh, batch: dict, max_len: int, steps: int, record: bool = True) -> dict:
     """``make_prefill_step``, then ``steps`` greedy ``make_decode_step`` calls over
     ``mesh``, from seed 0's params: the next tokens, each kernel's launches in the
-    prefill, the K/V leaf's local shape, placements and bytes (K and V), the
-    host times and ``max_memory_allocated`` from the prefill on, the first
-    step's logits and each step's margin between its two largest logits; with
-    ``record``, each step's logits and every new cache leaf (each rank's whole
-    view)."""
-    from repro_torch.models import get_model
-    from repro_torch.models import transformer as T
+    prefill, the local shape and placements of the K/V leaf (and of whisper's
+    cross K/V) and the bytes of all of them, the host times and
+    ``max_memory_allocated`` from the prefill on, the first step's logits and
+    each step's margin between its two largest logits; with ``record``, each
+    step's logits and every new cache leaf (each rank's whole view)."""
+    from repro_torch.models import encdec, get_model, transformer
     from repro_torch.sharding import rules
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
-    seen, decode_step = [], T.decode_step
+    module = encdec if cfg.family == "encdec" else transformer
+    seen, decode_step = [], module.decode_step
 
     def spy(*args):  # the logits of each decode step, which the step itself reduces to the next tokens
         out = decode_step(*args)
         seen.append(out[0])
         return out
 
-    T.decode_step = spy
+    module.decode_step = spy
     try:
         prefill, _, pspecs = make_prefill_step(cfg, mesh, max_len)
         decode, _, _ = make_decode_step(cfg, mesh)
     finally:
-        T.decode_step = decode_step
+        module.decode_step = decode_step
     model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     params = rules.distribute(dict(model.named_parameters()), pspecs)
     del model
@@ -2051,9 +2109,11 @@ def tp_serve_run(cfg, mesh, batch: dict, max_len: int, steps: int, record: bool 
     t0 = time.perf_counter()
     logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
+    kv = [k for k in ("k", "v", "cross_k", "cross_v") if k in cache]
     out = {"prefill_ms_host": (time.perf_counter() - t0) * 1e3, "prefill_launches": kernel_counts(),
-           "k_local": list(cache["k"].to_local().shape), "k_placements": [str(p) for p in cache["k"].placements],
-           "kv_bytes": sum(cache[k].to_local().numel() * cache[k].to_local().element_size() for k in ("k", "v")),
+           **{f"{k}_local": list(cache[k].to_local().shape) for k in kv if k in ("k", "cross_k")},
+           **{f"{k}_placements": [str(p) for p in cache[k].placements] for k in kv if k in ("k", "cross_k")},
+           "kv_bytes": sum(cache[k].to_local().numel() * cache[k].to_local().element_size() for k in kv),
            "pos": int(cache["pos"].to_local()), "steps": [], "decode_ms_host": [], "margins": []}
     tok = torch.argmax(tp_whole(logits)[:, -1].float(), dim=-1).to(torch.int32)[:, None]
     tokens = []
@@ -2085,8 +2145,34 @@ def tp_serve_cfg():
     return tp_cfg(ARCHS["qwen2.5-3b"])
 
 
-def tp_serve_batch(cfg) -> dict:
-    return {"tokens": cuda_batch(cfg, seq_len=TP_SERVE["prompt"], global_batch=TP_SERVE["batch"], seed=5)["tokens"]}
+def tp_serve_batch(cfg, serve: dict = TP_SERVE) -> dict:
+    """The prompt of a full-width serving run (and whisper's frame embeddings)."""
+    batch = cuda_batch(cfg, seq_len=serve["prompt"], global_batch=serve["batch"], seed=5)
+    return {k: v for k, v in batch.items() if k != "labels"}
+
+
+def tp_opt_state(params: dict, ospecs: dict) -> dict:
+    """AdamW's zero state (``adamw.init``) in ``ospecs``' placements, made from the
+    placed params shard by shard: no rank holds the whole state, even for a
+    moment (two ranks of a 2.8 G-param model share the one card)."""
+    from repro_torch.sharding import rules
+
+    mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
+    return {"mu": mu, "nu": {n: torch.zeros_like(t) for n, t in mu.items()},
+            "step": rules.distribute(torch.zeros((), dtype=torch.int32), ospecs["step"])}
+
+
+def tp_serve_whisper_cfg():
+    from repro_torch.configs import ARCHS
+
+    return tp_cfg(ARCHS["whisper-medium"])
+
+
+def tp_moe_cfg():
+    """deepseek-moe-16b at full width, TP_MOE_LAYERS deep, through flash, padded for (1, 2)."""
+    from repro_torch.configs import ARCHS
+
+    return tp_cfg(dataclasses.replace(ARCHS["deepseek-moe-16b"], num_layers=TP_MOE_LAYERS, attention_impl="flash"))
 
 
 # one rank of phase_tp's (1, 2) mesh: argv = rank, port, directory of the (1, 1) references
@@ -2110,7 +2196,8 @@ world = tp.Group(dist.group.WORLD, rank, cs.TP_SIZE)
 x = torch.full((2, 2), float(rank + 1), device="cuda")
 for name, fn in (("all_reduce", lambda: tp._all_reduce(x, world)),
                  ("all_reduce_max", lambda: tp._all_reduce(x, world, "max")),
-                 ("all_gather", lambda: tp._all_gather(x, -1, world))):
+                 ("all_gather", lambda: tp._all_gather(x, -1, world)),
+                 ("all_to_all", lambda: tp._all_to_all(x, world))):
     print(f"rank {rank}: probe {name}", file=sys.stderr, flush=True)
     try:
         got = fn()
@@ -2118,7 +2205,7 @@ for name, fn in (("all_reduce", lambda: tp._all_reduce(x, world)),
     except Exception as e:
         out["probe"][name] = f"refused: {type(e).__name__}: {e}"[:300]
 want = {"all_reduce": ["cuda", [[3.0] * 2] * 2], "all_reduce_max": ["cuda", [[2.0] * 2] * 2],
-        "all_gather": ["cuda", [[1.0, 1.0, 2.0, 2.0]] * 2]}
+        "all_gather": ["cuda", [[1.0, 1.0, 2.0, 2.0]] * 2], "all_to_all": ["cuda", [[1.0, 1.0], [2.0, 2.0]]]}
 if out["probe"] != want:
     print(json.dumps(out), flush=True)
     sys.exit(3)
@@ -2167,7 +2254,9 @@ for name, layers, impl in cs.TP_TWINS:
     serve = {k: ((v - ref["serve"][k].to("cuda")).abs().max() / ref["serve"][k].abs().max().clamp(min=1e-30)).item()
              for k, v in got["serve"].items()}
     m, rm = got["metrics"], ref["metrics"]
-    twins[name] = {"layers": layers, "attention_impl": impl, "loss": [m["loss"], rm["loss"]],
+    routing = cs.tp_routing_diff(got["routing"], ref["routing"])
+    routing["margins"] = routing["margins"] and sorted(routing["margins"])[:20]
+    twins[name] = {"layers": layers, "attention_impl": impl, "loss": [m["loss"], rm["loss"]], "routing": routing,
                    "loss_rel": abs(m["loss"] - rm["loss"]) / abs(rm["loss"]),
                    "grad_norm_rel": abs(m["grad_norm"] - rm["grad_norm"]) / rm["grad_norm"],
                    "grad_rel_max": max(worst.values()), "grad_rel_worst_leaf": max(worst, key=worst.get),
@@ -2199,28 +2288,34 @@ for name, layers in cs.TP_DECODE_TWINS:
                     "leaves": sorted(got["steps"][0]["cache"]),
                     "next_equal": [torch.equal(g["next"], r["next"]) for g, r in pairs],
                     "k_local": got["k_local"], "k_local_1x1": ref["k_local"], "k_placements": got["k_placements"],
+                    **{k: v for k, v in (("cross_k_local", got.get("cross_k_local")),
+                                         ("cross_k_local_1x1", ref.get("cross_k_local")),
+                                         ("cross_k_placements", got.get("cross_k_placements"))) if v is not None},
                     "prefill_launches": got["prefill_launches"], "prefill_launches_1x1": ref["prefill_launches"],
                     "heads": sorted(set(map(tuple, heads)))}
     del got, ref, pairs
     torch.cuda.empty_cache()
 out["decode"] = decode
 
-# (f) qwen2.5-3b at full width and depth, bf16, serving 4 x 1024 tokens, against the (1, 1) mesh's tokens
-print(f"rank {rank}: serving", file=sys.stderr, flush=True)
-cfg = cs.tp_serve_cfg()
-got = cs.tp_serve_run(cfg, mesh, cs.tp_serve_batch(cfg), cs.TP_SERVE["max_len"], cs.TP_SERVE["steps"], record=False)
-ref = torch.load(f"{tmp}/serve.pt")
-same = got["tokens"] == ref["tokens"]
-out["serve"] = {k: got[k] for k in ("kv_bytes", "k_local", "k_placements", "max_memory_allocated", "prefill_ms_host",
-                                    "decode_ms_host", "prefill_launches")}
-forks = [int(row.logical_not().nonzero()[0]) if not row.all() else None for row in same]
-out["serve"].update(tokens_equal=int(same.sum()), tokens=same.numel(), first_fork=forks,
+# (f) qwen2.5-3b (4 x 1024 tokens) and whisper-medium (4 x 256, 1500 frames) at full width and depth,
+# bf16, serving, against the (1, 1) mesh's tokens
+for key, cfg, serve in (("serve", cs.tp_serve_cfg(), cs.TP_SERVE),
+                        ("serve_whisper", cs.tp_serve_whisper_cfg(), cs.TP_SERVE_WHISPER)):
+    print(f"rank {rank}: {key}", file=sys.stderr, flush=True)
+    got = cs.tp_serve_run(cfg, mesh, cs.tp_serve_batch(cfg, serve), serve["max_len"], serve["steps"], record=False)
+    ref = torch.load(f"{tmp}/{key}.pt")
+    same = got["tokens"] == ref["tokens"]
+    out[key] = {k: got[k] for k in ("kv_bytes", "k_local", "k_placements", "cross_k_local", "cross_k_placements",
+                                    "max_memory_allocated", "prefill_ms_host", "decode_ms_host", "prefill_launches")
+                if k in got}
+    forks = [int(row.logical_not().nonzero()[0]) if not row.all() else None for row in same]
+    out[key].update(tokens_equal=int(same.sum()), tokens=same.numel(), first_fork=forks,
                     first_step_logits_rel=rel(got["first_logits"], ref["first_logits"]),
                     logit_scale=ref["first_logits"].abs().max().item(),
                     margin_at_fork_1x1=[None if f is None else ref["margins"][f][i] for i, f in enumerate(forks)],
                     median_margin_1x1=float(np.median(ref["margins"])))
-del got
-torch.cuda.empty_cache()
+    del got
+    torch.cuda.empty_cache()
 
 # (a) mamba2-780m at full width and depth, bf16, remat: one step to warm, one measured
 print(f"rank {rank}: full width", file=sys.stderr, flush=True)
@@ -2244,6 +2339,31 @@ out["full"] = {"step_ms_gloo": (time.perf_counter() - t0) * 1e3, "launches": cs.
                "metrics": {k: v.item() for k, v in metrics.items()}, "heads": sorted(set(map(tuple, heads))),
                "local_bytes": sum(p.to_local().numel() * p.to_local().element_size() for p in params.values()),
                "params": sum(p.numel() for p in params.values())}
+del step, params, opt, batch, metrics
+torch.cuda.empty_cache()
+
+# (g) deepseek-moe-16b at full width, TP_MOE_LAYERS of its layers, bf16, flash, remat: one warm step, one measured
+print(f"rank {rank}: moe full width", file=sys.stderr, flush=True)
+cfg = cs.tp_moe_cfg()
+step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, adamw.AdamWConfig(**cs.TRAIN_OCFG))
+model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+params = rules.distribute(dict(model.named_parameters()), pspecs)
+del model
+opt = cs.tp_opt_state(params, ospecs)
+batch = cs.cuda_batch(cfg, **cs.TRAIN_DATA)
+step(params, opt, batch)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+heads.clear()
+cs.zero_counts()
+t0 = time.perf_counter()
+_, _, metrics = step(params, opt, batch)
+torch.cuda.synchronize()
+out["full_moe"] = {"step_ms_gloo": (time.perf_counter() - t0) * 1e3, "launches": cs.kernel_counts(),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "metrics": {k: v.item() for k, v in metrics.items()}, "heads": sorted(set(map(tuple, heads))),
+                   "local_bytes": sum(p.to_local().numel() * p.to_local().element_size() for p in params.values()),
+                   "params": sum(p.numel() for p in params.values())}
 print(json.dumps(out), flush=True)
 dist.destroy_process_group()
 """
@@ -2260,27 +2380,37 @@ def phase_tp() -> dict:
 
     (c) the kernels at the ranks' local shapes, against their plain versions at
     the kernel bars: ``ssd_scan`` at mamba2-780m's 24 heads a rank and
-    ``flash_attention`` at qwen2.5-3b's 8 q heads over 1 kv head and (c′) at
-    internvl2-26b's 24 over 4, with their times, bounds and SDPA's.  (b) and
-    (e) f32 twins, full width, depth cut (TP_TWINS, internvl2-26b's with its
-    patch prefix through flash): a prefill and one ``make_train_step`` on the
-    (1, 2) mesh against the same on the (1, 1) mesh (this process,
-    ``make_host_mesh()``): loss 1e-4 rel., grad norm 1e-3 rel., each leaf's
-    gradient (each rank's shard) and each prefill leaf within TP_GRAD_BAR of
-    its largest, each kernel launched as often as on (1, 1), on the rank's
-    heads.  (d) f32 decode twins (TP_DECODE_TWINS): a prefill, then 8 greedy
-    decode steps whose ``pos`` crosses from the first rank's half of the
-    sequence into the second's: each step's next tokens equal the (1, 1)
-    mesh's, its logits and every new cache leaf within TP_DECODE_BAR, and each
-    rank's K/V leaf is (L, B, S/2, K, D).  (f) qwen2.5-3b at full width and
-    depth, bf16, serving a prefill of 4 x 1024 tokens at ``max_len`` 2048 and
-    32 greedy decode steps: K/V bytes a rank (half the (1, 1) mesh's, held),
+    ``flash_attention`` at qwen2.5-3b's 8 q heads over 1 kv head, (c′) at
+    internvl2-26b's 24 over 4 and (c″) at deepseek-moe-16b's 8 over 8, with
+    their times, bounds and SDPA's.  (b) and (e) f32 twins of every family,
+    full width, depth cut (TP_TWINS: internvl2-26b's with its patch prefix and
+    deepseek-moe-16b through flash, whisper-medium at 2 + 2 layers with 1500
+    frames): a prefill and one ``make_train_step`` on the (1, 2) mesh against
+    the same on the (1, 1) mesh (this process, ``make_host_mesh()``): loss
+    1e-4 rel., grad norm 1e-3 rel., each leaf's gradient (each rank's shard)
+    and each prefill leaf within TP_GRAD_BAR of its largest, each kernel
+    launched as often as on (1, 1), on the rank's heads; every MoE routing
+    compared token by token, a token whose top-k experts differ failing the
+    phase unless its (1, 1) probabilities lie within TP_ROUTER_TIE (a near
+    tie, which sums in another order may flip).  (d) f32 decode twins
+    (TP_DECODE_TWINS): a prefill, then 8 greedy decode steps whose ``pos``
+    crosses from the first rank's half of the sequence into the second's:
+    each step's next tokens equal the (1, 1) mesh's, its logits and every new
+    cache leaf within TP_DECODE_BAR, and each rank's K/V leaf is (L, B, S/2,
+    K, D); whisper's cross K/V (L, B, F/2, K, D), its 1500 frames split too.
+    (f) qwen2.5-3b (a prefill of 4 x 1024 tokens at ``max_len`` 2048) and
+    whisper-medium (4 x 256 at 512, 24 + 24 layers, 1500 frames) at full
+    width and depth, bf16, 32 greedy decode steps: K/V bytes a rank (with
+    whisper's cross K/V; half the (1, 1) mesh's, held),
     ``max_memory_allocated`` a rank, and how many tokens equal the (1, 1)
     mesh's (reported: bf16 reductions in another order may fork a token).
     (a) mamba2-780m at full width and depth, bf16, ``remat`` on, 4 x 1024
     tokens: one warm ``make_train_step`` per rank, 96 ``ssd_scan`` launches
     (48 layers, forward and recompute) on 24 heads and 48 plain backwards,
-    each rank's ``max_memory_allocated``."""
+    each rank's ``max_memory_allocated``.  (g) deepseek-moe-16b at full width,
+    TP_MOE_LAYERS of its 28 layers, bf16, flash, ``remat`` on, 4 x 1024
+    tokens: one warm step per rank, 2 flash launches a layer on 8 q over 8 kv
+    heads and 1 plain backward, memory a rank."""
     import os
     import socket
 
@@ -2291,17 +2421,19 @@ def phase_tp() -> dict:
         errs["ssd_scan", dtype] = check_ssd(TP_SSD_SHAPE, dtype, seed=11)
         errs["flash_attention", dtype] = check_fa(TP_FA_SHAPE, dtype, seed=12)[0]
         errs["flash_attention_vlm", dtype] = check_fa(TP_FA_VLM_SHAPE, dtype, seed=13)[0]
+        errs["flash_attention_moe", dtype] = check_fa(TP_FA_MOE_SHAPE, dtype, seed=14)[0]
     kernels = {name: {"shape": shape, **{str(dt).split(".")[1]: {"max_abs_err": errs[name, dt], **t}
                                          for dt, t in timer(shape).items()}}
                for name, shape, timer in (("ssd_scan", TP_SSD_SHAPE, time_ssd),
                                           ("flash_attention", TP_FA_SHAPE, time_fa),
-                                          ("flash_attention_vlm", TP_FA_VLM_SHAPE, time_fa))}
+                                          ("flash_attention_vlm", TP_FA_VLM_SHAPE, time_fa),
+                                          ("flash_attention_moe", TP_FA_MOE_SHAPE, time_fa))}
 
     with tempfile.TemporaryDirectory() as tmp:
         mesh = make_host_mesh()  # the (1, 1) reference
         for name, layers, impl in TP_TWINS:
             ref = tp_twin_run(tp_twin_cfg(name, layers, impl), mesh)
-            torch.save({k: ref[k] for k in ("serve", "metrics", "launches")}
+            torch.save({k: ref[k] for k in ("serve", "metrics", "launches", "routing")}
                        | {"grads": {n: g.cpu() for n, g in ref["grads"].items()}}, f"{tmp}/{name}.pt")
             del ref
             torch.cuda.empty_cache()
@@ -2309,13 +2441,16 @@ def phase_tp() -> dict:
             cfg = tp_twin_cfg(name, layers, "xla")
             torch.save(tp_serve_run(cfg, mesh, *tp_decode_batch(cfg), TP_DECODE["steps"]), f"{tmp}/decode_{name}.pt")
             torch.cuda.empty_cache()
-        cfg = tp_serve_cfg()
-        serve = tp_serve_run(cfg, mesh, tp_serve_batch(cfg), TP_SERVE["max_len"], TP_SERVE["steps"], record=False)
-        torch.save({k: serve.pop(k) for k in ("first_logits", "margins")} | {"tokens": serve["tokens"]},
-                   f"{tmp}/serve.pt")
-        serve.pop("steps")
-        serve["tokens"] = serve["tokens"].numel()
-        torch.cuda.empty_cache()
+        served = {}
+        for key, cfg, spec in (("serve", tp_serve_cfg(), TP_SERVE), ("serve_whisper", tp_serve_whisper_cfg(),
+                                                                     TP_SERVE_WHISPER)):
+            serve = tp_serve_run(cfg, mesh, tp_serve_batch(cfg, spec), spec["max_len"], spec["steps"], record=False)
+            torch.save({k: serve.pop(k) for k in ("first_logits", "margins")} | {"tokens": serve["tokens"]},
+                       f"{tmp}/{key}.pt")
+            serve.pop("steps")
+            serve["tokens"] = serve["tokens"].numel()
+            served[key] = serve
+            torch.cuda.empty_cache()
         torch.distributed.destroy_process_group()  # make_host_mesh started it
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
@@ -2342,12 +2477,18 @@ def phase_tp() -> dict:
     from repro_torch.configs import ARCHS
 
     cfg = ARCHS["mamba2-780m"]
+    moe_cfg = tp_moe_cfg()
     for r in ranks:
         for name, twin in r["twins"].items():
             if twin["loss_rel"] > 1e-4 or twin["grad_norm_rel"] > 1e-3 or twin["grad_rel_max"] > TP_GRAD_BAR \
                     or max(twin["prefill_rel"].values()) > TP_GRAD_BAR:
                 fail(f"phase_tp rank {r['rank']} f32 twin {name}: {twin} (bars: loss 1e-4, grad norm 1e-3, "
                      f"grads and prefill {TP_GRAD_BAR})")
+            routing = twin["routing"]
+            if routing["flips"] is None or (ARCHS[name].family == "moe") != (routing["calls"] > 0) \
+                    or any(m >= TP_ROUTER_TIE for m in routing["margins"]):
+                fail(f"phase_tp rank {r['rank']} f32 twin {name}: MoE routing {routing} against (1, 1) "
+                     f"(a flip is a near tie only within {TP_ROUTER_TIE})")
             tcfg = ARCHS[name]
             local = {"ssd_scan": tcfg.ssm_num_heads // TP_SIZE if tcfg.ssm_state else None,
                      "flash_attention": tcfg.num_heads // TP_SIZE if twin["attention_impl"] == "flash" else None}
@@ -2366,28 +2507,44 @@ def phase_tp() -> dict:
                     or not d["pos"] < half <= d["pos"] + TP_DECODE["steps"] - 1 \
                     or d["k_local"] != [*d["k_local_1x1"][:2], half, *d["k_local_1x1"][3:]] \
                     or d["k_placements"] != ["R", "S(2)"] or d["prefill_launches"] != d["prefill_launches_1x1"] \
+                    or ("cross_k_local" in d) != (tcfg.family == "encdec") \
+                    or "cross_k_local" in d and (d["cross_k_placements"] != ["R", "S(2)"] or d["cross_k_local"] != [
+                        *d["cross_k_local_1x1"][:2], tcfg.encoder_frames // TP_SIZE, *d["cross_k_local_1x1"][3:]]) \
                     or (d["prefill_launches"]["ssd_scan"][0] > 0) != bool(ssd) \
                     or any(h[1] != ssd for h in d["heads"]):
                 fail(f"phase_tp rank {r['rank']} f32 decode twin {name}: {d} (bar {TP_DECODE_BAR}, shard {half})")
-        if r["serve"]["kv_bytes"] * TP_SIZE != serve["kv_bytes"]:
-            fail(f"phase_tp rank {r['rank']} serving: {r['serve']['kv_bytes']} K/V bytes against {serve['kv_bytes']}"
-                 " on (1, 1)")
+        for key, serve in served.items():
+            if r[key]["kv_bytes"] * TP_SIZE != serve["kv_bytes"]:
+                fail(f"phase_tp rank {r['rank']} {key}: {r[key]['kv_bytes']} K/V bytes against {serve['kv_bytes']}"
+                     " on (1, 1)")
         full = r["full"]
         want = {"ssd_scan": remat_launches(cfg, cfg.num_layers), "flash_attention": [0, 0]}
         if full["launches"] != want or full["heads"] != [["ssd_scan", cfg.ssm_num_heads // TP_SIZE, "torch.bfloat16"]] \
                 or not np.isfinite(full["metrics"]["loss"]) or full["metrics"] != ranks[0]["full"]["metrics"]:
             fail(f"phase_tp rank {r['rank']} full-width step: {full}, expected launches {want}")
+        moe = r["full_moe"]
+        want = {"ssd_scan": [0, 0], "flash_attention": remat_launches(moe_cfg, moe_cfg.num_layers)}
+        local = ["flash_attention", moe_cfg.num_heads // TP_SIZE, moe_cfg.num_kv_heads // TP_SIZE, "torch.bfloat16"]
+        if moe["launches"] != want or moe["heads"] != [local] or not np.isfinite(moe["metrics"]["loss"]) \
+                or moe["metrics"] != ranks[0]["full_moe"]["metrics"]:
+            fail(f"phase_tp rank {r['rank']} full-width MoE step: {moe}, expected launches {want}, heads {local}")
     return {"phase": "tp", "mesh": ranks[0]["mesh"], "backend": "gloo over CUDA tensors (two ranks on one card)",
             "probe": ranks[0]["probe"], "kernels_at_local_shapes": kernels,
             "twins": {r["rank"]: r["twins"] for r in ranks},
             "decode_twins": {r["rank"]: r["decode"] for r in ranks},
-            "serve": {"arch": "qwen2.5-3b", **TP_SERVE, "dtype": "bfloat16", "1x1": serve,
-                      "note": "host times stage every collective through host memory: not TP's speed",
-                      **{r["rank"]: r["serve"] for r in ranks}},
+            **{key: {"arch": arch, **spec, "dtype": "bfloat16", "1x1": served[key],
+                     "note": "host times stage every collective through host memory: not TP's speed",
+                     **{r["rank"]: r[key] for r in ranks}}
+               for key, arch, spec in (("serve", "qwen2.5-3b", TP_SERVE),
+                                       ("serve_whisper", "whisper-medium", TP_SERVE_WHISPER))},
             "full": {"arch": cfg.name, "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]],
                      "remat": cfg.remat,
                      "note": "step_ms_gloo stages every collective through host memory: not TP's speed",
                      **{r["rank"]: r["full"] for r in ranks}},
+            "full_moe": {"arch": moe_cfg.name, "layers": [moe_cfg.num_layers, ARCHS[moe_cfg.name].num_layers],
+                         "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]], "remat": moe_cfg.remat,
+                         "note": "step_ms_gloo stages every collective through host memory: not TP's speed",
+                         **{r["rank"]: r["full_moe"] for r in ranks}},
             "wall_s": wall_s, "nvidia_smi": smi()}
 
 
@@ -2453,9 +2610,10 @@ def main() -> None:
     fa_row["launches_by_path"] = {"qwen2.5-3b_forward": dense_launches,
                                   **{k: v["flash_attention"] for k, v in hybrid_launches.items()},
                                   **{k: v["flash_attention"][0] for k, v in train_launches.items()}}
-    # the tensor-parallel paths, per rank of the (1, 2) mesh: the full-width mamba2 step and the f32 twins
+    # the tensor-parallel paths, per rank of the (1, 2) mesh: the full-width mamba2 and MoE steps and the twins
     for rank, twins in tp["twins"].items():
         ssd_row["launches_by_path"][f"mamba2_tp_train_rank{rank}"] = tp["full"][rank]["launches"]["ssd_scan"][0]
+        fa_row["launches_by_path"][f"moe_tp_train_rank{rank}"] = tp["full_moe"][rank]["launches"]["flash_attention"][0]
         for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row)):
             row["launches_by_path"][f"tp_twins_rank{rank}"] = sum(t["launches"][name][0] for t in twins.values())
             row["launches_by_path"][f"tp_decode_twins_rank{rank}"] = sum(
@@ -2464,6 +2622,7 @@ def main() -> None:
         row["backwards_by_path"] = {k: v[name][1] for k, v in train_launches.items()}
         row["tp_local_shape"] = tp["kernels_at_local_shapes"][name]
     fa_row["tp_vlm_local_shape"] = tp["kernels_at_local_shapes"]["flash_attention_vlm"]
+    fa_row["tp_moe_local_shape"] = tp["kernels_at_local_shapes"]["flash_attention_moe"]
     fa_row["launches_by_rank_vlm_twin"] = {rank: twins["internvl2-26b"]["launches"]["flash_attention"]
                                            for rank, twins in tp["twins"].items()}
     ssd_row["train_plain_backward"] = train["plain_backward"]

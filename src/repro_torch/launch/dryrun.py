@@ -64,9 +64,10 @@ from repro_torch.train import step as step_lib
 
 # the functional collectives the port's steps issue on the CPU device type, by
 # their HLO names (DTensor redistributes Shard(i) -> Shard(j) there by an
-# all-gather, not an all-to-all); any other collective fails the cell
+# all-gather; the all-to-all is ``sharding/tp.py``'s, moving a GELU ``wo``
+# between its stored and its compute split); any other collective fails the cell
 _COLLECTIVES = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
-                "all_reduce": "all-reduce"}
+                "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
 
 
 def _nbytes(t: torch.Tensor) -> int:

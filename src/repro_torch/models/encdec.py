@@ -13,24 +13,39 @@ reference's names (``embedding.embed``, ``dec_pos``, ``enc_layers.{i}...``,
 ``convert.load_jax_params`` maps the reference's tree 1:1.  The cache adds
 ``cross_k`` and ``cross_v`` (layers, B, frames, K, hd), the encoder's K/V per
 decoder layer, computed once by ``prefill``.
+
+Under tensor parallelism (``tp_group`` on the modules, set by
+``train/step.py``) each attention runs on the rank's heads, each GELU MLP on
+its hidden columns, and the tied token table and ``dec_pos`` are split by
+rows: the embedding sums both lookups' partial rows in one reduction, and
+``forward`` returns the rank's vocabulary columns of the logits (``prefill``
+and ``decode_step`` gather them).  A sharded decode's self- and
+cross-attention read K/V that may be the rank's sequence shard
+(``Attention.seq_split``, ``layers._attend_cache``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
 
 from .config import ArchConfig
+from ..sharding import tp
 from .layers import (
     _device,
     _dtype,
     _normal,
     _project_qkv,
     _sdpa,
+    attention_decode,
     attention_init,
+    attention_prefill,
     cross_attention,
+    cross_attention_decode,
+    cross_kv,
     gelu_mlp,
     gelu_mlp_init,
     layernorm,
@@ -65,7 +80,10 @@ class DecLayer(nn.Module):
 
 
 class TokenEmbedding(nn.Module):
-    """The decoder's token table, (V, D); the logits reuse it (tied)."""
+    """The decoder's token table, (V, D); the logits reuse it (tied).  Its
+    ``tp_group`` is the model's: the table and ``dec_pos`` split by rows."""
+
+    tp_group: tp.Group | None = None
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
         super().__init__()
@@ -113,45 +131,47 @@ def _enc_body(cfg: ArchConfig, lp: EncLayer, x: torch.Tensor) -> torch.Tensor:
     cd = _dtype(cfg.compute_dtype)
     q, k, v = _project_qkv(cfg, lp.attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
     h = _sdpa(cfg, q, k, v, lp.attn.kvm, causal=False)
-    x = x + torch.einsum("bshk,hkd->bsd", h, lp.attn.wo.to(cd))
+    x = x + tp.reduce(torch.einsum("bshk,hkd->bsd", h, lp.attn.wo.to(cd)), lp.attn.tp_group)
     return x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
 
 
 # ------------------------------------------------------------------ decoder
-def _cross_kv(cfg: ArchConfig, lp: DecLayer, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    cd = _dtype(cfg.compute_dtype)
-    kx = torch.einsum("bfd,dhk->bfhk", enc_out, lp.cross_attn.wk.to(cd))
-    vx = torch.einsum("bfd,dhk->bfhk", enc_out, lp.cross_attn.wv.to(cd))
-    return kx, vx
-
-
-def _dec_tail(cfg: ArchConfig, lp: DecLayer, x: torch.Tensor, kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """Cross-attention over the encoder's K/V, then the GELU MLP."""
-    x = x + cross_attention(cfg, lp.cross_attn, layernorm(lp.lnx, x, cfg.norm_eps), kv)
+def _dec_tail(cfg: ArchConfig, lp: DecLayer, x: torch.Tensor, kv: tuple[torch.Tensor, torch.Tensor],
+              cross=cross_attention) -> torch.Tensor:
+    """Cross-attention (``cross``) over the encoder's K/V, then the GELU MLP."""
+    x = x + cross(cfg, lp.cross_attn, layernorm(lp.lnx, x, cfg.norm_eps), kv)
     return x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype)
 
 
 def _embed_tokens(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor, start: int) -> torch.Tensor:
-    """Token embeddings plus the learned positions from ``start``."""
+    """Token embeddings plus the learned positions from ``start``.  Under TP each
+    rank looks up the rows of both tables it holds, and one reduction sums them."""
     cd = _dtype(cfg.compute_dtype)
+    g = params.embedding.tp_group
+    if g is not None:
+        index = torch.arange(start, start + tokens.shape[1], device=tokens.device)
+        rows = tp.embed_rows(params.embedding.embed, tokens, cd, g)
+        return tp.reduce(rows + tp.embed_rows(params.dec_pos, index, cd, g)[None], g)
     pos = params.dec_pos[start:start + tokens.shape[1]].to(cd)
     return params.embedding.embed[tokens].to(cd) + pos[None]
 
 
 def _logits(cfg: ArchConfig, params: EncDec, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the tied table's rows: under TP this rank's vocabulary columns."""
     cd = _dtype(cfg.compute_dtype)
-    return torch.einsum("bsd,vd->bsv", layernorm(params.dec_norm, x, cfg.norm_eps), params.embedding.embed.to(cd))
+    x = tp.copy(layernorm(params.dec_norm, x, cfg.norm_eps), params.embedding.tp_group)
+    return torch.einsum("bsd,vd->bsv", x, params.embedding.embed.to(cd))
 
 
-def _dec_body(cfg: ArchConfig, lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor):
+def _dec_body(cfg: ArchConfig, lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor, whole_kv: bool = False):
     """The reference's decoder scan body: the layer's cross K/V, self-attention, then
-    ``_dec_tail``.  Returns the new x, the self-attention K/V and the cross K/V."""
-    cd = _dtype(cfg.compute_dtype)
-    kv = _cross_kv(cfg, lp, enc_out)
-    q, k, v = _project_qkv(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
-    h = _sdpa(cfg, q, k, v, lp.self_attn.kvm, causal=True)
-    x = x + torch.einsum("bshk,hkd->bsd", h, lp.self_attn.wo.to(cd))
-    return _dec_tail(cfg, lp, x, kv), k, v, kv
+    ``_dec_tail``.  Returns the new x, the self-attention K/V and the cross K/V,
+    under TP over every kv head with ``whole_kv`` (prefill's cache), else over the
+    kv heads the rank read."""
+    kv = cross_kv(cfg, lp.cross_attn, enc_out, whole_kv=whole_kv)
+    h, k, v = attention_prefill(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps), None, whole_kv=whole_kv)
+    cross = functools.partial(cross_attention, whole_kv=whole_kv)
+    return _dec_tail(cfg, lp, x + h, kv, cross), k, v, kv
 
 
 def _prefix(cfg: ArchConfig, params: EncDec, batch: dict[str, Any], cache: dict[str, Any] | None = None):
@@ -161,7 +181,7 @@ def _prefix(cfg: ArchConfig, params: EncDec, batch: dict[str, Any], cache: dict[
     s = tokens.shape[1]
     x = _embed_tokens(cfg, params, tokens, 0)
     for i, lp in enumerate(params.dec_layers):
-        x, k, v, kv = remat(cfg, _dec_body, cfg, lp, x, enc_out)
+        x, k, v, kv = remat(cfg, _dec_body, cfg, lp, x, enc_out, cache is not None)
         if cache is not None:
             cache["k"][i, :, :s] = k.to(cache["k"].dtype)
             cache["v"][i, :, :s] = v.to(cache["v"].dtype)
@@ -179,7 +199,7 @@ def forward(cfg: ArchConfig, params: EncDec, batch: dict[str, Any]) -> tuple[tor
 def loss_fn(cfg: ArchConfig, params: EncDec, batch: dict[str, Any]) -> torch.Tensor:
     """Next-token cross entropy in float32.  Labels < 0 are ignored."""
     logits, _ = forward(cfg, params, batch)
-    return cross_entropy(logits, batch["labels"])
+    return cross_entropy(logits, batch["labels"], params.embedding.tp_group)
 
 
 # -------------------------------------------------------------------- cache
@@ -208,7 +228,7 @@ def prefill(cfg: ArchConfig, params: EncDec, batch: dict[str, Any], max_len: int
                        _dtype(cfg.compute_dtype), batch["tokens"].device)
     x = _prefix(cfg, params, batch, cache)
     cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    return _logits(cfg, params, x[:, -1:]), cache
+    return tp.gather(_logits(cfg, params, x[:, -1:]), -1, params.embedding.tp_group), cache
 
 
 @torch.inference_mode()
@@ -216,20 +236,19 @@ def decode_step(cfg: ArchConfig, params: EncDec, cache, tokens: torch.Tensor):
     """One-token decode; cross K/V comes precomputed from prefill.
 
     The input cache is left as it was: the new self-attention K/V are one
-    copy per step, into which each layer writes its row in place.
+    copy per step, into which each layer writes its row in place
+    (``attention_decode``, without RoPE).  In a sharded decode the K/V and the
+    cross K/V may each be the rank's shard of its sequence, read through each
+    attention's ``seq_split``; ``pos`` stays global.
     """
     _check(cfg, params)
-    cd = _dtype(cfg.compute_dtype)
     pos = int(cache["pos"])
     x = _embed_tokens(cfg, params, tokens, pos)
     new_k, new_v = cache["k"].clone(), cache["v"].clone()
     for i, lp in enumerate(params.dec_layers):
-        q, k_new, v_new = _project_qkv(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps), None)
-        new_k[i, :, pos] = k_new[:, 0].to(new_k.dtype)
-        new_v[i, :, pos] = v_new[:, 0].to(new_v.dtype)
-        h = _sdpa(cfg, q, new_k[i].to(cd), new_v[i].to(cd), lp.self_attn.kvm, causal=True, q_offset=pos)
-        x = x + torch.einsum("bshk,hkd->bsd", h, lp.self_attn.wo.to(cd))
-        x = _dec_tail(cfg, lp, x, (cache["cross_k"][i], cache["cross_v"][i]))
+        h, _ = attention_decode(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps),
+                                {"k": new_k[i], "v": new_v[i]}, pos, rope=False)
+        x = _dec_tail(cfg, lp, x + h, (cache["cross_k"][i], cache["cross_v"][i]), cross_attention_decode)
     new_cache = dict(cache)
     new_cache["k"], new_cache["v"], new_cache["pos"] = new_k, new_v, cache["pos"] + 1
-    return _logits(cfg, params, x), new_cache
+    return tp.gather(_logits(cfg, params, x), -1, params.embedding.tp_group), new_cache

@@ -9,14 +9,15 @@ the reference's param tree 1:1.  The functions take the config and the
 module, as the reference's take the config and the param tree.
 
 Tensor parallelism (``sharding/tp.py``): a sharded step sets ``tp_group`` on
-the ``Attention``, ``MLP`` and ``Embedding`` modules it runs
+the ``Attention``, ``MLP``, ``GeluMLP`` and ``Embedding`` modules it runs
 (``train/step.py``) and hands each its model-axis shards: q heads (and kv
 heads where they divide the axis), FFN hidden columns and vocabulary rows.
 The layer then computes only those and joins the partial results over the
 group.  A sharded decode also sets ``seq_split`` on each ``Attention`` where
-its K/V cache is split over the sequence (``attention_decode``).  With
-``tp_group`` and ``seq_split`` None (every module ``init_params`` builds) each
-function runs the ops it ran before.
+the K/V it reads (its own cache, or a cross-attention's encoder K/V) is split
+over the sequence (``_attend_cache``).  With ``tp_group`` and ``seq_split``
+None (every module ``init_params`` builds) each function runs the ops it ran
+before.
 """
 from __future__ import annotations
 
@@ -173,26 +174,35 @@ def attention_init(cfg: ArchConfig, generator: torch.Generator, device) -> Atten
     return Attention(cfg, generator, device)
 
 
-def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor | None, *,
-                 whole_kv: bool = False):
-    """q, k and v of ``x``.  Under TP: this rank's q heads, and its kv heads where the
-    kv heads divide the group, else (``wk``/``wv`` replicated) the span of kv heads
-    its q heads read (``kv_heads_read``), or all of them with ``whole_kv``."""
-    cd = _dtype(cfg.compute_dtype)
+def _kv_weights(cfg: ArchConfig, p: Attention, whole_kv: bool):
+    """``wk``, ``wv`` and their biases (None without ``qkv_bias``) as this rank reads
+    them: under TP its own kv heads where they divide the group, else (replicated
+    leaves, through ``tp.copy``) the span of kv heads its q heads read
+    (``kv_heads_read``), or all of them with ``whole_kv``."""
     g = p.tp_group
     wk, wv = p.wk, p.wv
     bk, bv = (p.bk, p.bv) if cfg.qkv_bias else (None, None)
+    if g is not None and cfg.num_kv_heads % g.size:
+        wk, wv = tp.copy(wk, g), tp.copy(wv, g)
+        bk, bv = (None, None) if bk is None else (tp.copy(bk, g), tp.copy(bv, g))
+        if not whole_kv:
+            _, lo, kl = kv_heads_read(cfg, g)
+            wk, wv = wk[:, lo:lo + kl], wv[:, lo:lo + kl]
+            bk, bv = (None, None) if bk is None else (bk[lo:lo + kl], bv[lo:lo + kl])
+    return wk, wv, bk, bv
+
+
+def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor | None, *,
+                 whole_kv: bool = False):
+    """q, k and v of ``x``, rotated where ``positions`` are given.  Under TP: this
+    rank's q heads, and the kv heads of ``_kv_weights``."""
+    cd = _dtype(cfg.compute_dtype)
+    g = p.tp_group
+    wk, wv, bk, bv = _kv_weights(cfg, p, whole_kv)
     qs, ks = (p.q_norm.scale, p.k_norm.scale) if cfg.qk_norm else (None, None)
     if g is not None:
         x = tp.copy(x, g)
         qs, ks = (None, None) if qs is None else (tp.copy(qs, g), tp.copy(ks, g))
-        if cfg.num_kv_heads % g.size:
-            wk, wv = tp.copy(wk, g), tp.copy(wv, g)
-            bk, bv = (None, None) if bk is None else (tp.copy(bk, g), tp.copy(bv, g))
-            if not whole_kv:
-                _, lo, kl = kv_heads_read(cfg, g)
-                wk, wv = wk[:, lo:lo + kl], wv[:, lo:lo + kl]
-                bk, bv = (None, None) if bk is None else (bk[lo:lo + kl], bv[lo:lo + kl])
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(cd))
     k = torch.einsum("bsd,dhk->bshk", x, wk.to(cd))
     v = torch.einsum("bsd,dhk->bshk", x, wv.to(cd))
@@ -300,96 +310,146 @@ def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.T
     return tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), p.tp_group)
 
 
-def attention_prefill(cfg: ArchConfig, p: Attention, x: torch.Tensor,
-                      positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal attention on the plain path, as prefill runs it: (output, k, v) with
-    k and v over every kv head, for the cache.  Under TP the rank attends with its
-    own heads, and k and v are gathered over the group (or computed whole where
-    they are replicated)."""
+def attention_prefill(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor | None, *,
+                      whole_kv: bool = True) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal attention on the plain path, as prefill runs it (and whisper's
+    decoder always, with no ``positions``): (output, k, v) with k and v over every
+    kv head, for the cache.  Under TP the rank attends with its own heads, and k
+    and v are gathered over the group (or computed whole where they are
+    replicated); without ``whole_kv`` they are the kv heads the rank attended
+    with."""
     cd = _dtype(cfg.compute_dtype)
     g = p.tp_group
-    q, k, v = _project_qkv(cfg, p, x.to(cd), positions, whole_kv=True)
+    q, k, v = _project_qkv(cfg, p, x.to(cd), positions, whole_kv=whole_kv)
     ka, va = k, v
-    if g is not None and cfg.num_kv_heads % g.size:
+    if whole_kv and g is not None and cfg.num_kv_heads % g.size:
         _, lo, kl = kv_heads_read(cfg, g)
         ka, va = k[:, :, lo:lo + kl], v[:, :, lo:lo + kl]
     out = _sdpa(cfg, q, ka, va, p.kvm, causal=True, window=cfg.sliding_window)
     y = tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), g)
-    if g is not None and cfg.num_kv_heads % g.size == 0:
+    if whole_kv and g is not None and cfg.num_kv_heads % g.size == 0:
         k, v = tp.gather(k, 2, g), tp.gather(v, 2, g)
     return y, k, v
 
 
-def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor],
-                     pos: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """One-token decode against a KV cache.
+def _attend_cache(cfg: ArchConfig, p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """One query row's attention over K/V that a decode holds (its cache, or a
+    cross-attention's encoder K/V), through ``wo``: q (B, 1, H, D) over this
+    rank's q heads, k and v (B, Smax, K, D) over every kv head and the positions
+    ``valid`` (1, Smax) marks.
 
-    cache = {"k": (B, Smax, K, D), "v": same}; pos: the current length.  The
-    new K/V row is written into ``cache`` in place (the reference returns
-    updated copies); ``decode_step`` hands each layer a fresh copy.
-
-    Sharded (``train/step.py::make_decode_step``), the cache holds every kv head
-    and either the whole sequence or, with ``p.seq_split``, the rank's shard of
-    it (global positions ``offset`` to ``offset + Smax``), as the reference's
-    ``cache_specs`` place it:
+    Sharded (``train/step.py::make_decode_step``), k and v hold either the whole
+    sequence or, with ``p.seq_split``, the rank's shard of it, as the
+    reference's ``cache_specs`` place it:
 
     - (a) the sequence whole under ``p.tp_group`` alone: head-parallel, as
       ``attention``: the rank's q heads over the kv heads they read, its ``wo``
       rows, then ``tp.reduce``;
     - (b) the sequence split: every q head (gathered over the group under TP)
-      over the rank's positions, masked by their global positions; the partial
-      softmaxes are joined over the axes that split the sequence
-      (``tp.softmax_combine``), then the rank's own heads go through its ``wo``
-      rows (the whole ``wo`` without a group).  Only the rank whose shard holds
-      ``pos`` writes the new row.
+      over the rank's positions; the partial softmaxes are joined over the axes
+      that split the sequence (``tp.softmax_combine``), then the rank's own heads
+      go through its ``wo`` rows (the whole ``wo`` without a group).
     """
     cd = _dtype(cfg.compute_dtype)
     g, split = p.tp_group, p.seq_split
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x.to(cd), positions, whole_kv=True)
-    if g is not None and cfg.num_kv_heads % g.size == 0:
-        k_new, v_new = tp.gather(k_new, 2, g), tp.gather(v_new, 2, g)
-    k_cache, v_cache = cache["k"], cache["v"]
-    smax, d = k_cache.shape[1], k_cache.shape[3]
-    offset = 0 if split is None else split.offset
-    if offset <= pos < offset + smax:
-        k_cache[:, pos - offset] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[:, pos - offset] = v_new[:, 0].to(v_cache.dtype)
-    ks, vs, kvm = k_cache, v_cache, p.kvm
+    d = k.shape[3]
+    kvm = p.kvm
     if split is not None:
         q, kvm = tp.gather(q, 2, g), split.kvm
     elif g is not None:
         _, lo, kl = kv_heads_read(cfg, g)
-        ks, vs = k_cache[:, :, lo:lo + kl], v_cache[:, :, lo:lo + kl]
-    logits = torch.einsum("bqhd,bshd->bhqs", q, ks.to(cd)[:, :, kvm, :]).to(torch.float32)
+        k, v = k[:, :, lo:lo + kl], v[:, :, lo:lo + kl]
+    logits = torch.einsum("bqhd,bshd->bhqs", q, k.to(cd)[:, :, kvm, :]).to(torch.float32)
     logits = logits * d**-0.5
+    logits = torch.where(valid[None, None], logits, -1e30)
+    if split is None:
+        probs = torch.softmax(logits, dim=-1).to(cd)
+        out = torch.einsum("bhqs,bshd->bqhd", probs, v.to(cd)[:, :, kvm, :])
+    else:
+        top = logits.amax(dim=-1)  # (B, H, 1)
+        e = torch.exp(logits - top[..., None])
+        o = torch.einsum("bhqs,bshd->bqhd", e.to(cd), v.to(cd)[:, :, kvm, :]).to(torch.float32)
+        out = tp.softmax_combine(top, e.sum(dim=-1), o, split.groups).to(cd)
+        if g is not None:
+            out = tp.part(out, 2, g)
+    return tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), g)
+
+
+def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor],
+                     pos: int, *, rope: bool = True) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One-token decode against a KV cache (``_attend_cache``), rotated at ``pos``
+    unless ``rope`` is off (whisper's decoder has none).
+
+    cache = {"k": (B, Smax, K, D), "v": same}; pos: the current length.  The
+    new K/V row is written into ``cache`` in place (the reference returns
+    updated copies); ``decode_step`` hands each layer a fresh copy.  With
+    ``p.seq_split`` the cache holds global positions ``offset`` to
+    ``offset + Smax``, masked by those, and only the rank whose shard holds
+    ``pos`` writes the new row.
+    """
+    cd = _dtype(cfg.compute_dtype)
+    g, split = p.tp_group, p.seq_split
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device) if rope else None
+    q, k_new, v_new = _project_qkv(cfg, p, x.to(cd), positions, whole_kv=True)
+    if g is not None and cfg.num_kv_heads % g.size == 0:
+        k_new, v_new = tp.gather(k_new, 2, g), tp.gather(v_new, 2, g)
+    k_cache, v_cache = cache["k"], cache["v"]
+    smax = k_cache.shape[1]
+    offset = 0 if split is None else split.offset
+    if offset <= pos < offset + smax:
+        k_cache[:, pos - offset] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, pos - offset] = v_new[:, 0].to(v_cache.dtype)
     kpos = torch.arange(smax, device=x.device)[None, :] + offset
     valid = kpos <= pos
     if cfg.sliding_window:
         valid &= kpos > pos - cfg.sliding_window
-    logits = torch.where(valid[None, None], logits, -1e30)
-    if split is None:
-        probs = torch.softmax(logits, dim=-1).to(cd)
-        out = torch.einsum("bhqs,bshd->bqhd", probs, vs.to(cd)[:, :, kvm, :])
-    else:
-        top = logits.amax(dim=-1)  # (B, H, 1)
-        e = torch.exp(logits - top[..., None])
-        o = torch.einsum("bhqs,bshd->bqhd", e.to(cd), vs.to(cd)[:, :, kvm, :]).to(torch.float32)
-        out = tp.softmax_combine(top, e.sum(dim=-1), o, split.groups).to(cd)
-        if g is not None:
-            out = tp.part(out, 2, g)
-    y = tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), g)
-    return y, {"k": k_cache, "v": v_cache}
+    return _attend_cache(cfg, p, q, k_cache, v_cache, valid), {"k": k_cache, "v": v_cache}
 
 
-def cross_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
-                    kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """Decoder cross-attention over precomputed encoder K/V (whisper)."""
+def cross_kv(cfg: ArchConfig, p: Attention, enc_out: torch.Tensor, *,
+             whole_kv: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's K/V for a decoder layer's cross-attention (whisper), (B, F, K, D)
+    without biases, as the reference computes them.  Under TP: the kv heads the
+    rank reads, or with ``whole_kv`` every kv head (for the cache), as
+    ``attention_prefill`` gives them."""
     cd = _dtype(cfg.compute_dtype)
-    q = torch.einsum("bsd,dhk->bshk", x.to(cd), p.wq.to(cd))
+    g = p.tp_group
+    wk, wv, _, _ = _kv_weights(cfg, p, whole_kv)
+    x = tp.copy(enc_out, g)
+    k = torch.einsum("bfd,dhk->bfhk", x, wk.to(cd))
+    v = torch.einsum("bfd,dhk->bfhk", x, wv.to(cd))
+    if whole_kv and g is not None and cfg.num_kv_heads % g.size == 0:
+        k, v = tp.gather(k, 2, g), tp.gather(v, 2, g)
+    return k, v
+
+
+def cross_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, kv: tuple[torch.Tensor, torch.Tensor], *,
+                    whole_kv: bool = False) -> torch.Tensor:
+    """Decoder cross-attention over the encoder's K/V (whisper), as ``cross_kv``
+    gives them (every kv head with ``whole_kv``): under TP the rank's q heads
+    over the kv heads they read, its ``wo`` rows, then ``tp.reduce``."""
+    cd = _dtype(cfg.compute_dtype)
+    g = p.tp_group
+    q = torch.einsum("bsd,dhk->bshk", tp.copy(x.to(cd), g), p.wq.to(cd))
     k, v = kv
+    if whole_kv and g is not None:
+        _, lo, kl = kv_heads_read(cfg, g)
+        k, v = k[:, :, lo:lo + kl], v[:, :, lo:lo + kl]
     out = _sdpa(cfg, q, k.to(cd), v.to(cd), p.kvm, causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd))
+    return tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), g)
+
+
+def cross_attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                           kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """One token's cross-attention over the encoder's K/V in a decode's cache,
+    every kv head and every frame valid (``_attend_cache``: whole, or with
+    ``p.seq_split`` the rank's shard of the frames)."""
+    cd = _dtype(cfg.compute_dtype)
+    q = torch.einsum("bsd,dhk->bshk", tp.copy(x.to(cd), p.tp_group), p.wq.to(cd))
+    k, v = kv
+    valid = torch.ones((1, k.shape[1]), dtype=torch.bool, device=k.device)
+    return _attend_cache(cfg, p, q, k, v, valid)
 
 
 # ----------------------------------------------------------------------- mlp
@@ -412,14 +472,20 @@ def mlp_init(d_model: int, d_ff: int, dtype, generator: torch.Generator, device)
 
 def mlp(p: MLP, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     cd = _dtype(compute_dtype)
-    x = tp.copy(x.to(cd), p.tp_group)
-    g = x @ p.gate.to(cd)
-    u = x @ p.up.to(cd)
-    return tp.reduce((F.silu(g) * u) @ p.down.to(cd), p.tp_group)
+    return tp.reduce(mlp_partial(p, tp.copy(x.to(cd), p.tp_group), cd), p.tp_group)
+
+
+def mlp_partial(p: MLP, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """``mlp`` inside a region: ``x`` in ``cd`` has entered it, and under TP the
+    result is this rank's part of the sum over the hidden columns."""
+    return (F.silu(x @ p.gate.to(cd)) * (x @ p.up.to(cd))) @ p.down.to(cd)
 
 
 class GeluMLP(nn.Module):
-    """``gelu(x @ wi + bi) @ wo + bo``, the tanh form of GELU (``jax.nn.gelu``'s default)."""
+    """``gelu(x @ wi + bi) @ wo + bo``, the tanh form of GELU (``jax.nn.gelu``'s default).
+    Under TP ``wi``/``bi`` are column-parallel and ``wo`` row-parallel."""
+
+    tp_group: tp.Group | None = None
 
     def __init__(self, d_model: int, d_ff: int, dtype, generator: torch.Generator, device):
         super().__init__()
@@ -434,10 +500,12 @@ def gelu_mlp_init(d_model: int, d_ff: int, dtype, generator: torch.Generator, de
 
 
 def gelu_mlp(p: GeluMLP, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """Under TP the rank's hidden columns, their ``wo`` rows summed over the group;
+    ``bo`` is added once, after the sum."""
     cd = _dtype(compute_dtype)
-    x = x.to(cd)
+    x = tp.copy(x.to(cd), p.tp_group)
     h = F.gelu(x @ p.wi.to(cd) + p.bi.to(cd), approximate="tanh")
-    return h @ p.wo.to(cd) + p.bo.to(cd)
+    return tp.reduce(h @ p.wo.to(cd), p.tp_group) + p.bo.to(cd)
 
 
 # ----------------------------------------------------------------- embedding

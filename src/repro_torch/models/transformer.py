@@ -23,14 +23,15 @@ With ``attention_impl="flash"`` the full-sequence attention of ``forward``
 (and so of ``loss_fn``) runs the flash-attention kernel; ``prefill`` and
 ``decode_step`` use the plain attention whatever it says, as the reference does.
 
-Under tensor parallelism (the modules' ``tp_group``, set by ``train/step.py``
-for the ssm, dense, hybrid and vlm families) ``forward`` returns this rank's
-vocabulary columns of the logits, which ``loss_fn`` and ``nll_sum`` take as
-they are; ``prefill`` and ``decode_step`` gather them over the group.  A vlm's
-patch prefix joins the residual stream after the vocab-parallel embedding,
-which is whole on every rank, and leaves it before the unembedding.  In a
-sharded decode the K/V leaves may hold the rank's shard of the sequence
-(``Attention.seq_split``), while ``pos`` stays global.
+Under tensor parallelism (the modules' ``tp_group``, set by ``train/step.py``;
+a MoE layer splits its experts' hidden columns, ``models/moe.py``)
+``forward`` returns this rank's vocabulary columns of the logits, which
+``loss_fn`` and ``nll_sum`` take as they are; ``prefill`` and
+``decode_step`` gather them over the group.  A vlm's patch prefix joins the
+residual stream after the vocab-parallel embedding, which is whole on every
+rank, and leaves it before the unembedding.  In a sharded decode the K/V
+leaves may hold the rank's shard of the sequence (``Attention.seq_split``),
+while ``pos`` stays global.
 """
 from __future__ import annotations
 

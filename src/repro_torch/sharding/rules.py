@@ -216,6 +216,18 @@ def model_dim(spec: tuple) -> int | None:
     return None
 
 
+def tp_spec(name: str, spec: tuple) -> tuple:
+    """The spec a tensor-parallel step computes leaf ``name`` in: its stored
+    ``spec``, but a GELU MLP's ``wo`` (F, D), which the reference's rules store
+    with D over ``"model"``, row-parallel: F over ``"model"``, so that the hidden
+    columns a rank computes meet their own rows and one all-reduce closes the
+    layer (an all-to-all of the weight a step, where a split D would gather the
+    (B, S, F) activations each layer)."""
+    if _leaf_name(name, (0,) * len(spec)) == "wo_mlp":
+        return ("model", None)
+    return spec
+
+
 def model_shard(spec: tuple, shape: tuple[int, ...], mesh) -> tuple[int, int, int] | None:
     """``(dim, start, length)`` of this rank's model-axis shard of a leaf of global
     ``shape`` under ``spec`` (a ``"model"`` entry alone in its dim: the TP

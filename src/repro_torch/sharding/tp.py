@@ -19,7 +19,10 @@ over the group:
 - :func:`gather`: all-gather forward, the rank's slice backward.
 
 :func:`embed_lookup` and :func:`nll_sum` are the vocab-parallel embedding and
-token loss.  :func:`softmax_combine` joins the partial softmaxes of a decode
+token loss (:func:`embed_rows`, the lookup before its sum, lets two row-split
+tables share one reduction).  :func:`all_to_all` moves a leaf's model-axis
+split from one dim to another, outside autograd (a row-parallel GELU ``wo``
+stored split over its output dim).  :func:`softmax_combine` joins the partial softmaxes of a decode
 that attends over a sequence-sharded K/V cache, one shard a rank.  Every
 collective is a ``torch.distributed._functional_collectives`` op
 (``_c10d_functional``), the namespace ``launch/dryrun.py``'s census prices
@@ -61,6 +64,28 @@ def _all_gather(x: torch.Tensor, dim: int, g: Group) -> torch.Tensor:
     else:
         out = funcol.wait_tensor(torch.ops._c10d_functional.all_gather_into_tensor(x, g.size, g.group.group_name))
     return torch.cat(out.chunk(g.size), dim=dim) if dim % x.ndim else out
+
+
+def _all_to_all(x: torch.Tensor, g: Group) -> torch.Tensor:
+    """``x``'s dim 0 cut into ``g.size`` equal parts, part j sent to rank j; what
+    each rank sent, joined along dim 0 in rank order.  A ``gloo`` group takes CUDA
+    tensors through c10d's in-place op, as ``_all_gather`` does."""
+    x = x.contiguous()
+    if x.is_cuda and dist.get_backend(g.group) == "gloo":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=g.group)
+        return out
+    parts = [x.shape[0] // g.size] * g.size
+    return funcol.wait_tensor(torch.ops._c10d_functional.all_to_all_single(x, parts, parts, g.group.group_name))
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, g: Group) -> torch.Tensor:
+    """A tensor split over the group along ``cat_dim`` (this rank holds part
+    ``g.rank``), split along ``split_dim`` instead: the rank's part along
+    ``split_dim`` of the whole.  Not differentiable: the steps move leaves and
+    gradients with it."""
+    out = _all_to_all(torch.stack(x.chunk(g.size, split_dim)), g)
+    return torch.cat(out.unbind(0), dim=cat_dim)
 
 
 def _mine(x: torch.Tensor, dim: int, g: Group) -> torch.Tensor:
@@ -134,15 +159,21 @@ def part(x: torch.Tensor, dim: int, g: Group) -> torch.Tensor:
     return _mine(copy(x, g), dim, g)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype, g: Group) -> torch.Tensor:
-    """Rows of a vocab-parallel table, in ``dtype``: this rank holds rows
-    [rank * V/tp, (rank + 1) * V/tp) and looks up the tokens that fall there; the
-    others give zeros, and the sum over the group is each token's row, exactly."""
+def embed_rows(table: torch.Tensor, index: torch.Tensor, dtype: torch.dtype, g: Group) -> torch.Tensor:
+    """This rank's part of the rows ``index`` of a table split by rows over the
+    group, in ``dtype``: the rank holds rows [rank * V/tp, (rank + 1) * V/tp) and
+    looks up the indices that fall there, zeros elsewhere.  Summed over the group
+    (``reduce``) it is each index's row, exactly."""
     vl = table.shape[0]
-    local = tokens.to(torch.int64) - g.rank * vl
+    local = index.to(torch.int64) - g.rank * vl
     inside = (local >= 0) & (local < vl)
     rows = table[local.clamp(0, vl - 1)].to(dtype)
-    return reduce(torch.where(inside[..., None], rows, torch.zeros((), dtype=dtype, device=rows.device)), g)
+    return torch.where(inside[..., None], rows, torch.zeros((), dtype=dtype, device=rows.device))
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype, g: Group) -> torch.Tensor:
+    """Rows of a vocab-parallel table, in ``dtype``: ``embed_rows`` summed over the group."""
+    return reduce(embed_rows(table, tokens, dtype, g), g)
 
 
 def nll_sum(logits: torch.Tensor, labels: torch.Tensor, g: Group) -> tuple[torch.Tensor, torch.Tensor]:

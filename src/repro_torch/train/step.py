@@ -21,16 +21,16 @@ AdamW state live between steps as DTensors in the placements of
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps over
 the same placements, with the cache in ``rules.cache_specs``'.  Each rank
 runs the model on its rows of the batch (the data axes).  Where the model
-axis is wider than 1 (``baseline``, ``replicated-weights``) the steps of the
-families in ``TP_FAMILIES`` are tensor parallel over it (``sharding/tp.py``):
-each leaf is gathered over the data axes only, each rank keeps its model-axis
-shard and computes only its heads, hidden columns and vocabulary slice.  Their
-decode steps keep the K/V cache in its placements, each rank attending over
-its own shard of the sequence.  The moe and encdec families gather every leaf
-whole, so the ranks of one model-axis group compute the same rows, and their
-decode makes its K/V whole over the sequence (ROADMAP P5c).  The abstract
-trees (``abstract_params``, ``abstract_opt_state``, ``abstract_cache``) are
-the same trees on the ``meta`` device.
+axis is wider than 1 (``baseline``, ``replicated-weights``) the steps of every
+family are tensor parallel over it (``sharding/tp.py``, ``model_group``): each
+leaf is gathered over the data axes only, each rank keeps its model-axis shard
+and computes only its heads, hidden and expert hidden columns and vocabulary
+slice (a GELU MLP's ``wo``, stored split over its output dim, is moved to its
+rows by an all-to-all, ``rules.tp_spec``).  The decode steps keep the K/V
+cache (and whisper's cross K/V) in its placements, each rank attending over
+its own shard of the sequence.  The abstract trees (``abstract_params``,
+``abstract_opt_state``, ``abstract_cache``) are the same trees on the ``meta``
+device.
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ from torch.utils._pytree import tree_map
 from repro_torch.convert import STACKED
 from repro_torch.models import get_model
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.encdec import MAX_DECODER_POS
 from repro_torch.models.layers import Attention, kv_head_map, kv_map
 from repro_torch.models.transformer import nll_sum
 from repro_torch.optim import adamw
@@ -170,26 +171,26 @@ def make_train_fn(cfg: ArchConfig, ocfg: adamw.AdamWConfig | None = None, *, com
     return train_step
 
 
-# the families whose steps are tensor parallel over the model axis, by step kind
-TP_FAMILIES = {"train": ("ssm", "dense", "hybrid", "vlm"), "prefill": ("ssm", "dense", "hybrid", "vlm"),
-               "decode": ("ssm", "dense", "hybrid", "vlm")}
-
-
-def model_group(cfg: ArchConfig, mesh, layout: str, step: str) -> tp.Group | None:
-    """This rank's model-axis group when the ``step`` kind of ``cfg`` runs tensor
-    parallel on ``mesh`` under ``layout``, else None.  That needs the q heads, SSM
-    heads, FFN hidden and padded vocabulary to divide the axis
-    (``rules.pad_config_for_mesh`` pads the first and the last; every registered
-    arch divides 16); where one does not, the spec keeps its leaves whole over
-    ``model`` and the step gathers every leaf, as for the other families."""
+def model_group(cfg: ArchConfig, mesh, layout: str) -> tp.Group | None:
+    """This rank's model-axis group when the steps of ``cfg`` run tensor parallel
+    on ``mesh`` under ``layout``, else None.  That needs the q heads, SSM
+    heads, FFN and expert hidden, padded vocabulary and whisper's decoder
+    positions and width to divide the axis (``rules.pad_config_for_mesh`` pads
+    the q heads and the vocabulary; every registered arch divides 16); where one
+    does not, the spec keeps its leaves whole over ``model`` and the step
+    gathers every leaf."""
     size = rules.model_axis_size(mesh, layout)
-    if size == 1 or cfg.family not in TP_FAMILIES[step]:
+    if size == 1:
         return None
     dims = [cfg.vocab_padded]
     if cfg.family in ("ssm", "hybrid"):
         dims.append(cfg.ssm_num_heads)
     if cfg.family in ("dense", "hybrid", "vlm"):
         dims += [cfg.num_heads, cfg.d_ff]
+    if cfg.family == "moe":
+        dims += [cfg.num_heads, cfg.expert_d_ff, cfg.expert_d_ff * cfg.num_shared_experts]
+    if cfg.family == "encdec":  # wo's output dim too: the step moves its split from there (``rules.tp_spec``)
+        dims += [cfg.num_heads, cfg.d_ff, cfg.d_model, MAX_DECODER_POS]
     if any(v % size for v in dims):
         return None
     return tp.Group(mesh.get_group("model"), mesh.get_local_rank("model"), size)
@@ -209,24 +210,39 @@ def _shell(cfg: ArchConfig, device_type: str, g: tp.Group | None = None) -> nn.M
     return shell
 
 
-def _keep_model(mesh, pspecs: dict, g: tp.Group | None) -> dict[str, list] | None:
+class _Keep(dict):
     """Under TP, each leaf's placements gathered over the data axes only: ``Shard``
     on the model axis where its spec splits it there (``rules.model_dim``),
-    ``Replicate`` elsewhere.  None without TP: every leaf is gathered whole."""
+    ``Replicate`` elsewhere; and ``turn``, the leaves whose compute spec
+    (``rules.tp_spec``) splits another dim over the model axis, as (stored dim,
+    compute dim), which an all-to-all over ``group`` moves between."""
+
+    def __init__(self, placements: dict[str, list], turn: dict[str, tuple[int, int]], group: tp.Group):
+        super().__init__(placements)
+        self.turn, self.group = turn, group
+
+
+def _keep_model(mesh, pspecs: dict, g: tp.Group | None) -> _Keep | None:
+    """``_Keep`` for ``pspecs`` under TP; None without TP: every leaf is gathered whole."""
     if g is None:
         return None
     dims = {n: rules.model_dim(s.spec) for n, s in pspecs.items()}
-    return {n: [Shard(d) if a == "model" and d is not None else Replicate() for a in mesh.mesh_dim_names]
-            for n, d in dims.items()}
+    turn = {n: (dims[n], d) for n, s in pspecs.items() if (d := rules.model_dim(rules.tp_spec(n, s.spec))) != dims[n]}
+    return _Keep({n: [Shard(d) if a == "model" and d is not None else Replicate() for a in mesh.mesh_dim_names]
+                  for n, d in dims.items()}, turn, g)
 
 
-def _leaves(params: dict[str, DTensor], keep: dict[str, list] | None) -> dict[str, torch.Tensor]:
+def _leaves(params: dict[str, DTensor], keep: _Keep | None) -> dict[str, torch.Tensor]:
     """Each param as this rank computes with it: whole (``full_tensor``) or, under TP,
-    gathered over the data axes into ``keep``'s placements, the rank's model-axis shard."""
+    gathered over the data axes into ``keep``'s placements, the rank's model-axis
+    shard, moved to its compute dim where ``keep.turn`` says."""
     with torch.no_grad():
         if keep is None:
             return {n: p.full_tensor() for n, p in params.items()}
-        return {n: p.redistribute(p.device_mesh, keep[n]).to_local().detach() for n, p in params.items()}
+        out = {n: p.redistribute(p.device_mesh, keep[n]).to_local().detach() for n, p in params.items()}
+        for n, (stored, compute) in keep.turn.items():
+            out[n] = tp.all_to_all(out[n], compute, stored, keep.group)
+        return out
 
 
 def _rows(cfg: ArchConfig, mesh, batch: dict[str, torch.Tensor], layout: str) -> tuple[dict, list]:
@@ -238,18 +254,18 @@ def _rows(cfg: ArchConfig, mesh, batch: dict[str, torch.Tensor], layout: str) ->
     return rows, rules.to_placements(bspecs["tokens"], mesh)
 
 
-def _cache_rows(mesh, cache: dict, tokens: list, g: tp.Group | None, kv: list | None = None) -> dict:
+def _cache_rows(mesh, cache: dict, tokens: list, g: tp.Group | None, kept: dict | None = None) -> dict:
     """The placements of each cache leaf held as this rank's batch rows: the batch
     (dim 1) split where the tokens' rows are, every other dim whole, but under TP
     the SSM state's heads (dim 2) split over the model axis, as the rank holds them.
-    ``kv``, where given, are the K/V leaves' placements, kept as they are (a decode
-    over the cache's sequence shards)."""
+    ``kept``, where given, holds placements by leaf name (the K/V leaves', and
+    whisper's cross K/V's), kept as they are (a decode over their sequence shards)."""
     def rows(t, heads=False):
         return [Shard(2) if heads and a == "model" else Shard(1) if isinstance(pl, Shard) and t.ndim > 1
                 else Replicate() for a, pl in zip(mesh.mesh_dim_names, tokens)]
 
     def leaf(n, t):
-        return kv if kv is not None and n in ("k", "v") else rows(t, g is not None and n == "state")
+        return kept[n] if kept and n in kept else rows(t, g is not None and n == "state")
 
     return {k: {n: leaf(n, t) for n, t in v.items()} if isinstance(v, dict) else leaf(k, v) for k, v in cache.items()}
 
@@ -342,7 +358,7 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
     opt_shape = abstract_opt_state(params_shape)
     ospecs = {"mu": pspecs, "nu": pspecs, "step": rules.NamedSharding(mesh, ())}
-    group = model_group(cfg, mesh, layout, "train")
+    group = model_group(cfg, mesh, layout)
     shell = _shell(cfg, mesh.device_type, group)
     keep = _keep_model(mesh, pspecs, group)
     dt = getattr(torch, grad_dtype)
@@ -366,6 +382,8 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
         loss, grads = _loss_and_grad(cfg, shell, loss_of, leaves, rows)
         del full, leaves
         with torch.no_grad():
+            for n, (stored, compute) in ({} if keep is None else keep.turn).items():
+                grads[n] = tp.all_to_all(grads[n], stored, compute, group)
             loss = DTensor.from_local(loss, mesh, partial).full_tensor()
             into = {n: opt_state["mu"][n].placements for n in params}
             sharded = [DTensor.from_local(grads.pop(n), mesh, held(n)).redistribute(mesh, into[n]) for n in params]
@@ -413,17 +431,17 @@ def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, *, layout: str = "bas
 
     ``step(params, batch)`` takes params as DTensors in ``pspecs`` and the
     global batch.  Each rank gathers every param whole (``full_tensor``), or
-    under TP (``model_group``: the families of ``TP_FAMILIES["prefill"]``; moe
-    and encdec wait for P5c) over the data axes only, keeping its model-axis
+    under TP (``model_group``) over the data axes only, keeping its model-axis
     shards, and prefills its rows of the batch (``rules.batch_specs``).  It
     returns the last-position logits (over the whole vocabulary) as a DTensor
     split like the tokens' rows, and the cache as DTensors in
     ``rules.cache_specs``' placements: under TP each rank's SSM state holds its
-    heads, and K/V are gathered over the heads, then cut into the sequence
-    shards the specs give (a vlm's sequence holds its patch prefix too)."""
+    heads, and K/V (and whisper's cross K/V) are gathered over the heads, then
+    cut into the sequence shards the specs give (a vlm's sequence holds its
+    patch prefix too)."""
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
-    group = model_group(cfg, mesh, layout, "prefill")
+    group = model_group(cfg, mesh, layout)
     run = _Apply(_shell(cfg, mesh.device_type, group), make_prefill_fn(cfg, max_len))
     keep = _keep_model(mesh, pspecs, group)
 
@@ -444,35 +462,36 @@ def make_decode_step(cfg: ArchConfig, mesh, *, layout: str = "baseline"):
 
     ``step(params, cache, tokens)`` takes params as DTensors in ``pspecs``,
     the cache as DTensors in ``rules.cache_specs``' placements and the
-    global (B, 1) tokens.  Each rank decodes its rows of the batch.  In the
-    families of ``TP_FAMILIES["decode"]`` each rank keeps its K/V leaves as the
-    specs place them, its batch rows and its shard of the sequence: where the
-    sequence is split (over ``"model"``, or over the data axes too where the
-    batch does not divide them), each attention attends over the rank's shard
-    and the softmax statistics are combined over the axes that split it
-    (``layers.attention_decode``).  Under TP (``model_group``) the rank also
-    keeps its model-axis shards of the params and its heads of the SSM state.
-    The moe and encdec families gather every param whole, and make a
-    sequence-sharded K/V or a head-sharded SSM state whole on the rank (ROADMAP
-    P5c).  It returns the next tokens as a DTensor split like the tokens' rows,
-    and the new cache in ``rules.cache_specs``' placements."""
+    global (B, 1) tokens.  Each rank decodes its rows of the batch, and keeps
+    its K/V leaves (and whisper's ``cross_k``/``cross_v``) as the specs place
+    them, its batch rows and its shard of the sequence: where the sequence is
+    split (over ``"model"``, or over the data axes too where the batch does
+    not divide them), each attention attends over the rank's shard and the
+    softmax statistics are combined over the axes that split it
+    (``layers._attend_cache``; a cross-attention's split is the frames',
+    which divide 2 and 4 but not 16 for whisper's 1500).  Under TP
+    (``model_group``) the rank also keeps its model-axis shards of the params
+    and its heads of the SSM state.  It returns the next tokens as a DTensor
+    split like the tokens' rows, and the new cache in ``rules.cache_specs``'
+    placements."""
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
-    group = model_group(cfg, mesh, layout, "decode")
+    group = model_group(cfg, mesh, layout)
     shell = _shell(cfg, mesh.device_type, group)
     run = _Apply(shell, make_decode_fn(cfg))
     keep = _keep_model(mesh, pspecs, group)
-    attns = [mod for mod in shell.modules() if isinstance(mod, Attention)]
+    # each decoding attention and the cache leaf it reads (whisper's encoder runs in prefill only)
+    attns = [(mod, "cross_k" if name.endswith("cross_attn") else "k") for name, mod in shell.named_modules()
+             if isinstance(mod, Attention) and not name.startswith("enc_layers")]
     kvm = kv_head_map(cfg.num_heads, cfg.num_kv_heads, cfg.orig_num_heads).to(mesh.device_type) if attns else None
 
     def step(params: dict[str, DTensor], cache: dict, tokens: torch.Tensor):
         rows, placements = _rows(cfg, mesh, {"tokens": tokens}, layout)
-        kv = list(cache["k"].placements) if cfg.family in TP_FAMILIES["decode"] and "k" in cache else None
-        held = _cache_rows(mesh, cache, placements, group, kv)
+        kept = {n: list(cache[n].placements) for n in ("k", "v", "cross_k", "cross_v") if n in cache}
+        held = _cache_rows(mesh, cache, placements, group, kept)
         local = tree_map(lambda t, pl: t.redistribute(mesh, pl).to_local(), cache, held)
-        split = None if kv is None else _seq_split(mesh, kv, local["k"].shape[2], kvm)
-        for mod in attns:
-            mod.seq_split = split
+        for mod, leaf in attns:
+            mod.seq_split = _seq_split(mesh, kept[leaf], local[leaf].shape[2], kvm)
         full = _gather(params, keep)
         next_tok, new_cache = torch.func.functional_call(run, full, (local, rows["tokens"]))
         del full, local

@@ -11,23 +11,30 @@ numpy seed:
   vocab-parallel embedding and ``nll_sum``, against the plain op on the whole
   tensor, forward and backward;
 - the Mamba2 mixer, an attention layer (kv heads split at tp = 2, replicated
-  at tp = 4; with padded q heads; through the flash entry point) and an MLP
-  with their leaves sharded, against the unsharded module: output, input
-  gradient and each leaf's gradient;
-- ``make_train_step`` of the ssm, dense, hybrid and vlm families
-  (mamba2-780m, qwen2.5-3b, zamba2-2.7b and internvl2-26b, reduced) under
-  ``baseline``, against ``make_train_fn``'s step on the whole batch, at
-  ``test_torch_train.py``'s bars, with each leaf as the model saw it and the
-  heads the scan and the attention were given;
+  at tp = 4; with padded q heads; through the flash entry point), an MLP, a
+  MoE layer (and its routing), whisper's GELU MLP (``wo`` row-parallel) and
+  its cross-attention with their leaves sharded, against the unsharded
+  module: output, input gradient and each leaf's gradient; the decode's
+  cross-attention over frames split over the model axis, and whole;
+- ``tp.all_to_all`` under ``launch/dryrun.py``'s census: the values and the
+  price of the collective;
+- ``make_train_step`` of every family (mamba2-780m, qwen2.5-3b, zamba2-2.7b,
+  internvl2-26b, deepseek-moe-16b and whisper-medium, reduced) under
+  ``baseline``, against ``make_train_fn``'s step on the whole batch (a MoE's
+  aux loss the mean of the data ranks' own, as ``make_train_step`` takes it),
+  at ``test_torch_train.py``'s bars, with each leaf as the model saw it and
+  the heads the scan and the attention were given;
 - ``tp.softmax_combine`` over 4 shards of a masked sequence, against
   ``torch.softmax`` over the whole of it;
 - ``make_prefill_step`` of the same four, then 6 greedy ``make_decode_step``
   calls from its cache, against the unsharded functions: a batch of 4 whose
   decode crosses a boundary between two ranks' sequence shards, a batch of 1
   (its sequence split over every axis on the 2x2 mesh), and a sequence that
-  divides no model axis (head-parallel attention over the whole of it);
-- the sharded decode of qwen2.5-3b and internvl2-26b, from the reference's
-  perturbed params, against the JAX package's ``prefill`` and ``decode_step``.
+  divides no model axis (head-parallel attention over the whole of it), and
+  for whisper encoder frames that divide no model axis;
+- the sharded decode of qwen2.5-3b, internvl2-26b, deepseek-moe-16b and
+  whisper-medium, from the reference's perturbed params, against the JAX
+  package's ``prefill`` and ``decode_step``.
 """
 import numpy as np
 import pytest
@@ -37,12 +44,13 @@ from repro_torch.configs import ARCHS
 from torch_parity import run_ranks
 
 MESHES = {"2x2": 2, "1x4": 4}  # mesh name -> model axis size, over 4 ranks
-ARCH_NAMES = ("mamba2-780m", "qwen2.5-3b", "zamba2-2.7b", "internvl2-26b")
+ARCH_NAMES = ("mamba2-780m", "qwen2.5-3b", "zamba2-2.7b", "internvl2-26b", "deepseek-moe-16b", "whisper-medium")
 KV_NAMES = ARCH_NAMES[1:]  # the families with a K/V cache
-REF_NAMES = ("qwen2.5-3b", "internvl2-26b")  # held against the reference's decode_step
+REF_NAMES = ("qwen2.5-3b", "internvl2-26b", "deepseek-moe-16b", "whisper-medium")  # against the reference's decode
 REF_STEPS = 6
 OPS = ("copy_reduce", "all_reduce", "gather", "embed_lookup", "nll_sum")
-LAYERS = ("mamba2_mixer", "attention", "attention_padded_heads", "mlp")
+LAYERS = ("mamba2_mixer", "attention", "attention_padded_heads", "mlp", "moe", "gelu_mlp", "cross_attention")
+FRAMES = {"divided": 32, "undivided": 31}  # encoder frames: 32 divide both model axes, 31 neither
 OCFG = dict(lr=1e-3, warmup_steps=0, total_steps=50)
 PARAM_TOL = 1e-3 * OCFG["lr"]  # test_torch_train.py's bars
 MOMENT_TOL = 1e-4
@@ -58,8 +66,11 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import get_model, layers
+from repro_torch.models import encdec as E
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+import repro_torch.launch.dryrun as dr
 from repro_torch.sharding import rules, tp
 import repro_torch.train.step as S
 
@@ -68,6 +79,7 @@ ARCH_NAMES = {arch_names!r}
 OCFG = {ocfg!r}
 TOL = {tol!r}
 REF_NAMES, REF_DIR = {ref_names!r}, {ref_dir!r}
+FRAMES = {frames!r}
 mesh = make_host_mesh(model=MODEL, device="cpu")
 g = tp.Group(mesh.get_group("model"), mesh.get_local_rank("model"), MODEL)
 rng = np.random.default_rng(0)  # the same draws on every rank
@@ -143,17 +155,18 @@ def build(name, **changes):
     return cfg, get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
-def layer_check(cfg, model, prefix, fn, x):
-    \"\"\"fn(module, x) on the unsharded layer and on a TP shell's layer holding this
-    rank's shards: [output, input gradient, each leaf's gradient] relative errors,
-    and the local leaf shapes.\"\"\"
+def layer_check(cfg, model, prefix, fn, x, out_shape=None):
+    \"\"\"fn(module, x) (of ``out_shape``, else x's) on the unsharded layer and on a TP
+    shell's layer holding this rank's shards: [output, input gradient, each leaf's
+    gradient] relative errors, and the local leaf shapes.\"\"\"
     specs = rules.param_specs(cfg, mesh, model)
     plain_mod = model.get_submodule(prefix)
     names = [n for n, _ in plain_mod.named_parameters()]
     full = [p.detach() for _, p in plain_mod.named_parameters()]
-    shards = [rules.model_shard(specs[f"{{prefix}}.{{n}}"], tuple(p.shape), mesh) for n, p in zip(names, full)]
+    shards = [rules.model_shard(rules.tp_spec(n, specs[f"{{prefix}}.{{n}}"]), tuple(p.shape), mesh)
+              for n, p in zip(names, full)]
     shell = S._shell(cfg, "cpu", g).get_submodule(prefix)
-    r = t(*x.shape)
+    r = t(*(out_shape or x.shape))
 
     def run(module, x, *leaves):
         leaves = {{f"model.{{n}}": p for n, p in zip(names, leaves)}}
@@ -197,7 +210,84 @@ for key, changes in (("attention", {{"attention_impl": "flash"}}), ("attention_p
     lay[key]["padded"] = [cfg.num_heads, cfg.orig_num_heads, cfg.num_kv_heads]
 cfg, model = build("qwen2.5-3b")
 lay["mlp"] = layer_check(cfg, model, "layers.0.mlp", lambda m, x: layers.mlp(m, x, cfg.compute_dtype), x)
+
+# the MoE layer, its output plus its aux loss (so that the router's gradient takes both paths); a
+# shared direction in x crowds the router onto a few experts, past their capacity
+routes, route = [], M.route
+
+
+def spy_route(cfg, p, xt):
+    out = route(cfg, p, xt)
+    routes.append({{"topi": out[2].clone(), "slot": out[3].clone()}})
+    return out
+
+
+M.route = spy_route
+cfg, model = build("deepseek-moe-16b")
+x_moe = t(2, 24, cfg.d_model) + 2 * t(1, 1, cfg.d_model)
+lay["moe"] = layer_check(cfg, model, "layers.0.moe", lambda m, x: (lambda o, a: o + a)(*M.moe_apply(cfg, m, x)), x_moe)
+M.route = route
+result["routing"] = {{"sharded": routes[0], "plain": routes[1], "capacity": M.capacity(cfg, 24)}}
+
+
+def perturb(model):
+    \"\"\"Every vector leaf (biases, norm scales) moved off its constant init, so that a bias
+    added on every rank would show.\"\"\"
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * t(*p.shape))
+    return model
+
+
+cfg, model = build("whisper-medium")
+perturb(model)
+lay["gelu_mlp"] = layer_check(cfg, model, "dec_layers.0.mlp", lambda m, x: layers.gelu_mlp(m, x, cfg.compute_dtype), x)
+xc = t(2, 12 + cfg.encoder_frames, cfg.d_model)  # 12 query rows, then the encoder's frames
+lay["cross_attention"] = layer_check(
+    cfg, model, "dec_layers.0.cross_attn",
+    lambda m, x: layers.cross_attention(cfg, m, x[:, :12], layers.cross_kv(cfg, m, x[:, 12:])), xc,
+    (2, 12, cfg.d_model))
 result["layers"] = lay
+
+
+def cross_decode(frames):
+    \"\"\"The decode's cross-attention of one token over ``frames`` encoder frames (every kv
+    head), on this rank's shards against the unsharded layer: where the frames divide
+    the model axis the rank holds its part of them (``seq_split``), else all.\"\"\"
+    prefix = "dec_layers.0.cross_attn"
+    plain = model.get_submodule(prefix)
+    specs = rules.param_specs(cfg, mesh, model)
+    shell = S._shell(cfg, "cpu", g).get_submodule(prefix)
+    leaves = {{}}
+    for n, p in plain.named_parameters():
+        s = rules.model_shard(specs[f"{{prefix}}.{{n}}"], tuple(p.shape), mesh)
+        leaves[f"model.{{n}}"] = p.detach() if s is None else p.detach().narrow(*s)
+    hd = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    x, k, v = t(3, 1, cfg.d_model), t(3, frames, *hd), t(3, frames, *hd)
+    fn = lambda m, x, k, v: layers.cross_attention_decode(cfg, m, x, (k, v))
+    kl, vl = k, v
+    if frames % MODEL == 0:
+        n = frames // MODEL
+        kvm = layers.kv_head_map(cfg.num_heads, cfg.num_kv_heads, cfg.orig_num_heads)
+        shell.seq_split = tp.SeqSplit(g.rank * n, (g,), kvm)
+        kl, vl = k[:, g.rank * n:(g.rank + 1) * n], v[:, g.rank * n:(g.rank + 1) * n]
+    with torch.no_grad():
+        got = torch.func.functional_call(S._Apply(shell, fn), leaves, (x, kl, vl))
+        want = fn(plain, x, k, v)
+    return {{"err": err(got, want), "split": shell.seq_split is not None, "frames_seen": kl.shape[1]}}
+
+
+result["cross_decode"] = {{case: cross_decode(f) for case, f in FRAMES.items()}}
+
+# tp.all_to_all under the census: a (8, 6 tp) tensor split over its columns, moved to a split over its rows
+whole = t(8, 6 * MODEL)
+with dr.Census() as census:
+    rows = tp.all_to_all(mine(whole, 1), 0, 1, g)
+back = tp.all_to_all(rows, 1, 0, g)
+result["all_to_all"] = {{"rows": torch.equal(rows, mine(whole, 0)), "back": torch.equal(back, mine(whole, 1)),
+                         "collectives": [dataclasses.asdict(c) for c in census.trace.collectives],
+                         "wire": census.trace.collective_stats().wire_bytes}}
 
 
 # ---- the sharded steps, against the unsharded functions
@@ -213,6 +303,23 @@ def spy_leaves(params, keep):
 
 S._leaves = spy_leaves
 steps = {{}}
+
+
+def data_mean_aux_step(cfg, ocfg, model, opt, hb, parts):
+    \"\"\"make_train_fn's step on the whole batch, but with a MoE's aux loss the mean of the
+    ``parts`` data ranks' own over their rows, as make_train_step takes it.\"\"\"
+    named = dict(model.named_parameters())
+    count = (hb["labels"] >= 0).to(torch.float32).sum()
+    n = hb["tokens"].shape[0] // parts
+    loss = 0.0
+    for i in range(parts):
+        rows = {{k: v[i * n:(i + 1) * n] for k, v in hb.items()}}
+        logits, aux = T.forward(cfg, model, rows)
+        loss = loss + T.nll_sum(logits, rows["labels"])[0] / count + 0.01 * aux / parts
+    grads = torch.autograd.grad(loss, list(named.values()))
+    metrics = adamw.update(ocfg, dict(zip(named, grads)), opt, model)
+    metrics["loss"] = loss.detach()
+    return metrics
 for name in ARCH_NAMES:
     cfg, model = build(name, **({{"attention_impl": "flash"}} if name != "mamba2-780m" else {{}}))
     init = {{n: p.detach().clone() for n, p in model.named_parameters()}}
@@ -227,19 +334,23 @@ for name in ARCH_NAMES:
     heads.clear()
     _, _, metrics = step(params, opt, hb)
     (used,) = seen["leaves"]
-    shard_of = {{n: (init[n] if (s := rules.model_shard(specs[n], tuple(init[n].shape), mesh)) is None
-                    else init[n].narrow(*s)) for n in init}}
+    shard_of = {{n: (init[n] if (s := rules.model_shard(rules.tp_spec(n, specs[n]), tuple(init[n].shape), mesh))
+                    is None else init[n].narrow(*s)) for n in init}}
     row = {{"metrics": {{k: v.item() for k, v in metrics.items()}}, "heads": heads[:],
             "used": {{n: (tuple(u.shape), tuple(shard_of[n].shape), torch.equal(u, shard_of[n]))
                      for n, u in used.items()}},
             "params": {{n: p.full_tensor() for n, p in params.items()}},
             "mu": {{n: v.full_tensor() for n, v in opt["mu"].items()}},
             "nu": {{n: v.full_tensor() for n, v in opt["nu"].items()}},
-            "tp": S.model_group(cfg, mesh, "baseline", "train") is not None}}
+            "tp": S.model_group(cfg, mesh, "baseline") is not None}}
     if rank == 0:
         plain = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
         popt = adamw.init(plain)
-        _, _, pm = S.make_train_fn(cfg, ocfg)(plain, popt, hb)
+        data = rules.mesh_axes(mesh)["data"]
+        if cfg.family == "moe" and data > 1:
+            pm = data_mean_aux_step(cfg, ocfg, plain, popt, hb, data)
+        else:
+            _, _, pm = S.make_train_fn(cfg, ocfg)(plain, popt, hb)
         row["want"] = {{"metrics": {{k: v.item() for k, v in pm.items()}},
                        "params": {{n: p.detach() for n, p in plain.named_parameters()}},
                        "mu": popt["mu"], "nu": popt["nu"], "eps": ocfg.eps, "b1": ocfg.b1}}
@@ -265,22 +376,32 @@ result["softmax_combine"] = {{"err": (got - want).abs().max().item(),
 
 
 # ---- the serving steps: a prefill, then greedy decode steps, against the unsharded functions
-decoded, step_logits = [], []
-attention_decode, decode_step = T.attention_decode, T.decode_step
+decoded, crossed, step_logits = [], [], []
+attention_decode, cross_attention_decode = layers.attention_decode, layers.cross_attention_decode
+decode_steps = {{T: T.decode_step, E: E.decode_step}}
 
 
-def spy_attention_decode(cfg, p, x, cache, pos):
+def spy_attention_decode(cfg, p, x, cache, pos, **kw):
     decoded.append((tuple(cache["k"].shape), None if p.seq_split is None else p.seq_split.offset))
-    return attention_decode(cfg, p, x, cache, pos)
+    return attention_decode(cfg, p, x, cache, pos, **kw)
 
 
-def spy_decode_step(cfg, params, cache, tokens):
-    logits, new = decode_step(cfg, params, cache, tokens)
-    step_logits.append(logits)
-    return logits, new
+def spy_cross_attention_decode(cfg, p, x, kv):
+    crossed.append((tuple(kv[0].shape), None if p.seq_split is None else p.seq_split.offset))
+    return cross_attention_decode(cfg, p, x, kv)
 
 
-T.attention_decode, T.decode_step = spy_attention_decode, spy_decode_step
+def spy_decode_step(mod):
+    def spy(cfg, params, cache, tokens):
+        logits, new = decode_steps[mod](cfg, params, cache, tokens)
+        step_logits.append(logits)
+        return logits, new
+    return spy
+
+
+T.attention_decode = E.attention_decode = spy_attention_decode
+E.cross_attention_decode = spy_cross_attention_decode
+T.decode_step, E.decode_step = spy_decode_step(T), spy_decode_step(E)
 
 
 def flat(tree, prefix=""):
@@ -314,8 +435,8 @@ def serve(cfg, model, batch, max_len, steps, tokens=None):
     logits, cache = prefill(params, batch)
     want_logits, want = S.make_prefill_fn(cfg, max_len)(model, batch)
     specs = rules.param_specs(cfg, mesh, model)
-    shard_of = {{n: (p if (s := rules.model_shard(specs[n], tuple(p.shape), mesh)) is None else p.narrow(*s))
-                for n, p in model.named_parameters()}}
+    shard_of = {{n: (p if (s := rules.model_shard(rules.tp_spec(n, specs[n]), tuple(p.shape), mesh)) is None
+                    else p.narrow(*s)) for n, p in model.named_parameters()}}
     out = {{"prefill": {{"logits": close(logits.full_tensor(), want_logits),
                        **{{k: close(v.full_tensor(), flat(want)[k]) for k, v in flat(cache).items()}}}},
             "prefill_local": all(tuple(u.shape) == tuple(shard_of[n].shape) for n, u in seen["leaves"][0].items()),
@@ -326,9 +447,10 @@ def serve(cfg, model, batch, max_len, steps, tokens=None):
         tok = (mine, want_next) if tokens is None else (tokens[i], tokens[i])
         seen.clear()
         decoded.clear()
+        crossed.clear()
         step_logits.clear()
         next_tok, cache = decode(params, cache, tok[0])
-        (got_logits,), k_seen = step_logits, decoded[:]
+        (got_logits,), k_seen, cross_seen = step_logits, decoded[:], crossed[:]
         step_logits.clear()
         want_next, want = S.make_decode_fn(cfg)(model, want, tok[1])
         mine = next_tok.full_tensor()
@@ -337,36 +459,42 @@ def serve(cfg, model, batch, max_len, steps, tokens=None):
             "pos": int(want["pos"]) - 1, "logits": close(got_logits, my_rows(got_logits, step_logits[0])),
             "next": torch.equal(mine, want_next), "cache": {{k: close(v.full_tensor(), flat(want)[k])
                                                           for k, v in flat(cache).items()}},
-            "k_seen": k_seen, "decode_local": all(tuple(u.shape) == tuple(shard_of[n].shape)
+            "k_seen": k_seen, "cross_seen": cross_seen, "decode_local": all(tuple(u.shape) == tuple(shard_of[n].shape)
                                                  for n, u in seen["leaves"][0].items())}})
-    if "k" in cache:
-        out["k"] = {{"placements": [str(p) for p in cache["k"].placements], "global": tuple(cache["k"].shape),
-                    "local": tuple(cache["k"].to_local().shape)}}
-    out["decode_tp"] = S.model_group(cfg, mesh, "baseline", "decode") is not None
+    for leaf in ("k", "cross_k"):
+        if leaf in cache:
+            out[leaf] = {{"placements": [str(p) for p in cache[leaf].placements], "global": tuple(cache[leaf].shape),
+                         "local": tuple(cache[leaf].to_local().shape)}}
+    out["decode_tp"] = S.model_group(cfg, mesh, "baseline") is not None
     return out
 
 
-def prompt(cfg, b, seed=1):
+def prompt(cfg, b, seed=1, frames=FRAMES["divided"]):
     gen = torch.Generator().manual_seed(seed)
     batch = {{"tokens": torch.randint(0, cfg.vocab_size, (b, 12), generator=gen, dtype=torch.int32)}}
     if cfg.family == "vlm":
         batch["patch_embeds"] = torch.randn((b, cfg.num_patches, cfg.d_model), generator=gen)
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.randn((b, frames, cfg.d_model), generator=gen)
     return batch
 
 
 # the main case: a batch of 4, 12 tokens (and a vlm's patches) in a sequence of 32 (48 for a vlm), so that
 # the 6 decode steps write across the boundary at 16 (24) between two shards; a batch of 1, whose
-# sequence splits over every axis on the 2x2 mesh; a sequence of 31 (47), which divides no model axis
+# sequence splits over every axis on the 2x2 mesh; a sequence of 31 (47), which divides no model axis;
+# for whisper, 31 encoder frames, which divide no model axis either
 serving = {{}}
 for name in ARCH_NAMES:
     cfg, model = build(name)
     prefix = cfg.num_patches if cfg.family == "vlm" else 0
-    cases = {{"main": (4, 32)}}
+    cases = {{"main": (4, 32, FRAMES["divided"])}}
     if name != "mamba2-780m":
-        cases.update(batch1=(1, 32), undivided=(4, 31))
-    for case, (b, seq) in cases.items():
+        cases.update(batch1=(1, 32, FRAMES["divided"]), undivided=(4, 31, FRAMES["divided"]))
+    if cfg.family == "encdec":
+        cases.update(frames_undivided=(4, 32, FRAMES["undivided"]))
+    for case, (b, seq, frames) in cases.items():
         seq += 16 if prefix else 0
-        row = serve(cfg, model, prompt(cfg, b), seq - prefix, 6)
+        row = serve(cfg, model, prompt(cfg, b, frames=frames), seq - prefix, 6)
         row.pop("logits")
         serving[name, case] = row
 
@@ -422,7 +550,7 @@ def ranks(reference):
     def one(mesh):
         d = reference[mesh][0]
         code = RANK.format(model=MESHES[mesh], arch_names=ARCH_NAMES, ocfg=OCFG, tol=TOL, ref_names=REF_NAMES,
-                           ref_dir=str(d))
+                           ref_dir=str(d), frames=FRAMES)
         return run_ranks(code, 4, d)
 
     with concurrent.futures.ThreadPoolExecutor(len(MESHES)) as pool:
@@ -450,7 +578,12 @@ def test_layers_with_sharded_leaves_match_unsharded(ranks, mesh, layer):
     split leaf, the whole of a replicated one) within 1e-5 of their largest.  The
     scan and the attention see H/tp heads; qwen2.5-3b's 2 kv heads split at tp = 2
     and are read one a rank, from the replicated pair, at tp = 4; with 6 q heads,
-    3 a rank at tp = 2, and padded to 8 at tp = 4."""
+    3 a rank at tp = 2, and padded to 8 at tp = 4.  The MoE layer's experts and
+    shared expert split their hidden columns, its router stays whole (its
+    gradient, through the routing weights and the aux loss, summed once); the
+    GELU MLP's ``wo`` is held by rows (``rules.tp_spec``), its biases perturbed,
+    so that ``bo`` added on every rank would show; the cross-attention's encoder
+    frames are inputs too."""
     tp = MESHES[mesh]
     for r in ranks[mesh]:
         got = r["layers"][layer]
@@ -466,6 +599,58 @@ def test_layers_with_sharded_leaves_match_unsharded(ranks, mesh, layer):
         if layer == "attention_padded_heads":
             h = -(-6 // tp) * tp  # 6 q heads, padded to 8 at tp = 4
             assert got["padded"] == [h, 6 if h > 6 else 0, 2] and got["local"]["wq"][1] == h // tp
+        if layer == "moe":
+            assert set(got["split"]) == {"gate", "up", "down", "shared.gate", "shared.up", "shared.down"}
+        if layer == "gelu_mlp":
+            f, d = ARCHS["whisper-medium"].reduced().d_ff, ARCHS["whisper-medium"].reduced().d_model
+            assert set(got["split"]) == {"wi", "bi", "wo"} and got["local"]["wo"] == (f // tp, d)
+        if layer == "cross_attention":
+            assert {"wq", "wo"} <= set(got["split"]) and ("wk" in got["split"]) == (tp == 2)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_moe_routing_is_the_unsharded_layers_on_every_rank(ranks, mesh):
+    """The routing of the MoE layer above (its top-k experts, each pair's slot in its
+    expert's queue, and so the pairs past capacity that drop) is replicated: on
+    every rank equal to the unsharded layer's on the same input, and some pairs
+    drop."""
+    first = ranks[mesh][0]["routing"]
+    assert int((first["plain"]["slot"] >= first["capacity"]).sum()) > 0
+    for r in ranks[mesh]:
+        got = r["routing"]
+        for key in ("topi", "slot"):
+            assert torch.equal(got["sharded"][key], got["plain"][key]), key
+            assert torch.equal(got["sharded"][key], first["sharded"][key]), key
+
+
+@pytest.mark.parametrize("frames", FRAMES)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_cross_attention_decode_over_frames_split_or_whole(ranks, mesh, frames):
+    """One token's cross-attention in decode, on this rank's heads of the layer,
+    against the unsharded layer, within 1e-5 of its largest: over 32 frames each
+    rank holds its part of them (``seq_split``, every q head, the softmaxes
+    combined); 31 divide neither model axis, and each rank's heads read all."""
+    tp = MESHES[mesh]
+    for r in ranks[mesh]:
+        got = r["cross_decode"][frames]
+        assert got["err"] < 1e-5, got
+        assert got["split"] == (frames == "divided")
+        assert got["frames_seen"] == (FRAMES[frames] // tp if frames == "divided" else FRAMES[frames])
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_census_prices_an_all_to_all(ranks, mesh):
+    """``tp.all_to_all`` moves a (8, 6 tp) tensor's split over the model axis from its
+    columns to its rows and back, exactly; ``launch/dryrun.py``'s census records
+    the one collective as an all-to-all of its 192-byte operand (tp parts of (8 /
+    tp, 6) f32) over tp ranks, priced at (tp - 1) / tp of its result."""
+    tp = MESHES[mesh]
+    for r in ranks[mesh]:
+        got = r["all_to_all"]
+        assert got["rows"] and got["back"]
+        assert got["collectives"] == [{"op": "all-to-all", "operand_bytes": 192, "result_bytes": 192,
+                                       "group_size": tp}]
+        assert got["wire"] == 192 * (tp - 1) / tp
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
@@ -500,8 +685,10 @@ def test_train_step_matches_whole_batch_step(ranks, mesh, name):
 @pytest.mark.parametrize("mesh", MESHES)
 def test_train_step_computes_only_each_ranks_model_shards(ranks, mesh, name):
     """Every leaf the model computes with in the step is exactly this rank's
-    model-axis shard of it (``rules.model_shard``; whole where the spec keeps it
-    whole over ``model``), and the scan and flash attention get H/tp q heads."""
+    model-axis shard of it (``rules.model_shard`` of its compute spec,
+    ``rules.tp_spec``: a GELU MLP's ``wo`` by rows; whole where the spec keeps it
+    whole over ``model``), and the scan and flash attention get H/tp q heads
+    (whisper's attention runs the plain path only, as the reference's)."""
     tp = MESHES[mesh]
     cfg = ARCHS[name].reduced()
     for r in ranks[mesh]:
@@ -509,7 +696,8 @@ def test_train_step_computes_only_each_ranks_model_shards(ranks, mesh, name):
         assert all(shape == want and same for shape, want, same in used.values()), used
         assert any(shape != tuple(r["steps"][name]["params"][n].shape) for n, (shape, _, _) in used.items())
         heads = r["steps"][name]["heads"]
-        assert heads and all(h[1] == (cfg.ssm_num_heads if h[0] == "ssd_scan" else cfg.num_heads) // tp for h in heads)
+        assert bool(heads) == (cfg.family != "encdec")
+        assert all(h[1] == (cfg.ssm_num_heads if h[0] == "ssd_scan" else cfg.num_heads) // tp for h in heads)
 
 
 def _held_to_unsharded(s):
@@ -522,6 +710,17 @@ def _held_to_unsharded(s):
     for st in s["steps"]:
         bad = {k: v for k, v in {"logits": st["logits"], **st["cache"]}.items() if not v[0]}
         assert not bad and st["next"] and st["decode_local"], (st["pos"], bad, st["next"])
+
+
+def _cross_local(cfg, s, b_local, frames, split):
+    """``_kv_local`` for whisper's cross K/V (``cross_k``), over ``frames`` encoder frames."""
+    index, count = split or (0, 1)
+    kd = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    assert s["cross_k"]["global"][2] == frames
+    assert s["cross_k"]["local"] == (cfg.num_layers, b_local, frames // count, *kd), s["cross_k"]
+    for st in s["steps"]:
+        want = ((b_local, frames // count, *kd), None if split is None else index * frames // count)
+        assert st["cross_seen"] == [want] * cfg.num_layers, (st["cross_seen"], want)
 
 
 def _kv_local(cfg, s, b_local, seq, split):
@@ -547,7 +746,8 @@ def test_prefill_and_decode_steps_match_unsharded(ranks, mesh, name):
     of the sequence (``S(2)`` on ``"model"``), never the whole sequence; the 12
     prompt tokens (after a vlm's 8 patches) put ``pos`` across the boundary
     between two shards during decode.  The SSM state stays split over the heads
-    on ``model``."""
+    on ``model``; whisper's cross K/V are held split over their 32 frames
+    alike, and each cross-attention reads the rank's part."""
     tp = MESHES[mesh]
     cfg = ARCHS[name].reduced()
     for r in ranks[mesh]:
@@ -561,6 +761,9 @@ def test_prefill_and_decode_steps_match_unsharded(ranks, mesh, name):
         assert s["k"]["placements"] == ["S(1)" if tp == 2 else "R", "S(2)"]
         assert len({st["pos"] // (seq // tp) for st in s["steps"]}) == 2  # the decode crosses a shard boundary
         _kv_local(cfg, s, tp, seq, (r["coordinate"][1], tp))  # 4 rows over 4 // tp data ranks: tp a rank
+        if cfg.family == "encdec":
+            assert s["cross_k"]["placements"] == s["k"]["placements"]
+            _cross_local(cfg, s, tp, FRAMES["divided"], (r["coordinate"][1], tp))
 
 
 @pytest.mark.parametrize("name", KV_NAMES)
@@ -580,6 +783,9 @@ def test_decode_of_a_batch_of_one_splits_the_sequence_over_every_axis(ranks, mes
         assert len({st["pos"] // (seq // 4) for st in s["steps"]}) == 2
         data, model = r["coordinate"]
         _kv_local(cfg, s, 1, seq, (data * tp + model, 4))
+        if cfg.family == "encdec":
+            assert s["cross_k"]["placements"] == s["k"]["placements"]
+            _cross_local(cfg, s, 1, FRAMES["divided"], (data * tp + model, 4))
 
 
 @pytest.mark.parametrize("name", KV_NAMES)
@@ -597,6 +803,22 @@ def test_decode_over_a_sequence_that_does_not_divide_the_model_axis(ranks, mesh,
         _held_to_unsharded(s)
         assert s["k"]["placements"] == ["S(1)" if tp == 2 else "R", "R"]
         _kv_local(cfg, s, tp, s["k"]["global"][2], None)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_encdec_decode_over_frames_that_do_not_divide_the_model_axis(ranks, mesh):
+    """whisper's 31 encoder frames divide neither model axis, so ``rules.cache_specs``
+    keeps its cross K/V whole over them on every rank: each cross-attention is
+    head-parallel over all the frames, while the self-attention's K/V stay split
+    over the sequence, and the prefill and decode equal the unsharded ones."""
+    tp = MESHES[mesh]
+    cfg = ARCHS["whisper-medium"].reduced()
+    for r in ranks[mesh]:
+        s = r["serving"]["whisper-medium", "frames_undivided"]
+        _held_to_unsharded(s)
+        assert s["cross_k"]["placements"] == ["S(1)" if tp == 2 else "R", "R"]
+        assert s["k"]["placements"] == ["S(1)" if tp == 2 else "R", "S(2)"]
+        _cross_local(cfg, s, tp, FRAMES["undivided"], None)
 
 
 @pytest.mark.parametrize("name", REF_NAMES)
