@@ -61,9 +61,14 @@ with random weights from seed 0, and checks that each went through its kernel:
   encoder frames), whose greedy decode matches the (1, 1) mesh's across the
   shard boundary; qwen2.5-3b (4 x 1024 tokens) and whisper-medium (4 x 256,
   1500 frames) at full width and depth serving in bf16 on both meshes (K/V
-  bytes and memory a rank); and mamba2-780m at full width and depth and
-  deepseek-moe-16b at 2 of its layers taking one warm step per rank (96
-  ``ssd_scan`` launches on 24 of 48 heads; flash on 8 of 16 heads);
+  bytes and memory a rank); f32 twins of mamba2-780m and deepseek-moe-16b
+  whose ``make_train_step`` accumulates two microbatches and compresses its
+  gradients (int8, then top-k) as ``make_train_fn`` does on the whole batch;
+  and mamba2-780m at full width and depth and deepseek-moe-16b at 2 of its
+  layers taking one warm step per rank (96 ``ssd_scan`` launches on 24 of 48
+  heads; flash on 8 of 16 heads), then mamba2-780m one more step, two
+  microbatches of 2 x 1024 tokens, int8-compressed (192 ``ssd_scan`` launches,
+  the compression's own time);
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -1943,6 +1948,12 @@ TP_SERVE_WHISPER = dict(batch=4, prompt=256, max_len=512, steps=32)  # whisper-m
 # allocations filled the card
 TP_MOE_LAYERS = 2
 TP_ROUTER_TIE = 1e-5  # a MoE twin's routing may differ from (1, 1) only where its probabilities lie this close
+# (h) the hooked f32 twins: make_train_step with accum_steps and each compress method on (1, 2) against
+# make_train_fn with the same keywords on the whole batch (TP_TWIN_DATA: two microbatches of 1 x 512)
+TP_HOOK_TWINS = (("mamba2-780m", TRAIN_RESTART_LAYERS, "xla"), ("deepseek-moe-16b", TRAIN_RESTART_LAYERS, "flash"))
+TP_HOOKS = dict(accum_steps=2)
+TP_COMPRESS = ("int8", "topk")
+TP_FLIPS = 1e-3  # of the elements, which may sit across a rounding or threshold boundary (then left out)
 
 
 def tp_cfg(cfg):
@@ -2021,15 +2032,14 @@ def tp_twin_run(cfg, mesh) -> dict:
     routing of both (``tp_routing``)."""
     from repro_torch.models import get_model
     from repro_torch.optim import adamw
-    from repro_torch.sharding import rules
     from repro_torch.train.step import make_prefill_step, make_train_step
 
     ocfg = adamw.AdamWConfig(**TRAIN_OCFG)
     batch = cuda_batch(cfg, **TP_TWIN_DATA)
     model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, ocfg)
-    params = rules.distribute(dict(model.named_parameters()), pspecs)
-    opt = rules.distribute(adamw.init(model), ospecs)
+    params = tp_place(dict(model.named_parameters()), pspecs)
+    opt = tp_opt_state(params, ospecs)
     del model
     prefill, _, _ = make_prefill_step(cfg, mesh, TP_TWIN_DATA["seq_len"])
     routing = []
@@ -2039,7 +2049,29 @@ def tp_twin_run(cfg, mesh) -> dict:
     flat.update({f"cache/{k}": tp_whole(v) for k, v in cache.items() if not isinstance(v, dict)})
     flat.update({f"cache/ssm/{k}": tp_whole(v) for k, v in cache.get("ssm", {}).items()})
     del logits, cache
-    update, seen = adamw.update, {}
+    seen = {}
+    with tp_spy_update(seen), tp_routing(routing):
+        zero_counts()
+        _, _, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+    return {"serve": flat, "metrics": {k: v.item() for k, v in metrics.items()}, "grads": dict(seen),
+            "launches": counts, "specs": {n: s.spec for n, s in pspecs.items()}, "routing": routing}
+
+
+def tp_hook_cfg(name: str, layers: int, impl: str):
+    """The f32 twin of ``name`` for (h); a MoE's capacity at E / K, so that no token
+    drops and a microbatch routes alike on (1, 1) and (1, 2)."""
+    cfg = tp_twin_cfg(name, layers, impl)
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k) if cfg.family == "moe" else cfg
+
+
+@contextlib.contextmanager
+def tp_spy_update(seen: dict):
+    """The gradients AdamW is given while open (``optim/adamw.py::update``)."""
+    from repro_torch.optim import adamw
+
+    update = adamw.update
 
     def spy(c, grads, state, p, **kw):
         seen.update(grads)
@@ -2047,15 +2079,83 @@ def tp_twin_run(cfg, mesh) -> dict:
 
     adamw.update = spy
     try:
-        zero_counts()
-        with tp_routing(routing):
-            _, _, metrics = step(params, opt, batch)
-        torch.cuda.synchronize()
-        counts = kernel_counts()
+        yield seen
     finally:
         adamw.update = update
-    return {"serve": flat, "metrics": {k: v.item() for k, v in metrics.items()}, "grads": dict(seen),
-            "launches": counts, "specs": {n: s.spec for n, s in pspecs.items()}, "routing": routing}
+
+
+def tp_hook_step(cfg, compress: str, mesh=None) -> dict:
+    """One f32 step from seed 0's params on TP_TWIN_DATA with TP_HOOKS and ``compress``:
+    ``make_train_step`` over ``mesh``, or ``make_train_fn`` on the whole batch where
+    ``mesh`` is None.  The metrics, the compressed gradients AdamW was given (a
+    rank's shards on a mesh), each kernel's launches and plain backwards."""
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_fn, make_train_step
+
+    ocfg = adamw.AdamWConfig(**TRAIN_OCFG)
+    batch = cuda_batch(cfg, **TP_TWIN_DATA)
+    model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    if mesh is None:
+        step, params, opt = make_train_fn(cfg, ocfg, compress=compress, **TP_HOOKS), model, adamw.init(model)
+    else:
+        step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, ocfg, compress=compress, **TP_HOOKS)
+        params = tp_place(dict(model.named_parameters()), pspecs)
+        opt = tp_opt_state(params, ospecs)
+        del model
+    seen = {}
+    with tp_spy_update(seen):
+        zero_counts()
+        _, _, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+    return {"metrics": {k: v.item() for k, v in metrics.items()}, "grads": seen, "launches": counts,
+            **({} if mesh is None else {"specs": {n: s.spec for n, s in pspecs.items()}})}
+
+
+def tp_hook_bounds(grads: dict, compress: str) -> dict:
+    """Per stacked tensor of the reference's tree (``train/step.py::_layer_groups``), the
+    boundary a compressed element may sit across: int8's quantum (its largest |g| over
+    127), top-k's threshold (its least kept |g|)."""
+    from repro_torch.train.step import _layer_groups
+
+    out = {}
+    for key, names in _layer_groups(grads).items():
+        mags = torch.cat([grads[n].abs().reshape(-1) for n in names])
+        out[key] = (mags.max() / 127 if compress == "int8" else mags[mags > 0].min()).item()
+    return out
+
+
+def tp_hook_compare(got: dict, ref: dict, specs: dict, mesh, compress: str) -> dict:
+    """This rank's compressed gradients against the whole-batch step's (their shards):
+    the elements past TP_GRAD_BAR of their leaf's largest (flips), and their share
+    of all elements, each of which must sit on its tensor's boundary (int8: within
+    one quantum; top-k: the larger |g| of the two within TP_GRAD_BAR of the leaf's
+    largest from the threshold), and the largest error elsewhere, of the leaf's
+    largest."""
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import _layer_groups
+
+    worst, flips, off, elements = {}, {}, 0, 0
+    for key, names in _layer_groups(got["grads"]).items():
+        bound = ref["bounds"][key]
+        for n in names:
+            g, whole = got["grads"][n], ref["grads"][n].to("cuda")
+            whole = whole.to_dense() if whole.is_sparse else whole
+            shard = rules.model_shard(specs[n], tuple(whole.shape), mesh)
+            want = whole if shard is None else whole.narrow(*shard)
+            scale = want.abs().max().clamp(min=1e-30)
+            miss = (g - want).abs() > TP_GRAD_BAR * scale
+            if compress == "int8":
+                off += int(((g - want).abs()[miss] > bound * (1 + 1e-3)).sum())
+            else:
+                off += int(((torch.maximum(g.abs(), want.abs())[miss] - bound).abs() > TP_GRAD_BAR * scale).sum())
+            flips[n] = int(miss.sum())
+            elements += g.numel()
+            worst[n] = ((g - want).abs().masked_fill(miss, 0).max() / scale).item()
+    return {"grad_rel_max": max(worst.values()), "grad_rel_worst_leaf": max(worst, key=worst.get),
+            "flips": sum(flips.values()), "flips_share": sum(flips.values()) / elements,
+            "flips_leaves": sum(v > 0 for v in flips.values()), "flips_off_boundary": off}
 
 
 def tp_decode_batch(cfg) -> tuple[dict, int]:
@@ -2082,7 +2182,6 @@ def tp_serve_run(cfg, mesh, batch: dict, max_len: int, steps: int, record: bool 
     each step's margin between its two largest logits; with ``record``, each
     step's logits and every new cache leaf (each rank's whole view)."""
     from repro_torch.models import encdec, get_model, transformer
-    from repro_torch.sharding import rules
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
     module = encdec if cfg.family == "encdec" else transformer
@@ -2100,7 +2199,7 @@ def tp_serve_run(cfg, mesh, batch: dict, max_len: int, steps: int, record: bool 
     finally:
         module.decode_step = decode_step
     model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    params = rules.distribute(dict(model.named_parameters()), pspecs)
+    params = tp_place(dict(model.named_parameters()), pspecs)
     del model
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2162,6 +2261,16 @@ def tp_opt_state(params: dict, ospecs: dict) -> dict:
             "step": rules.distribute(torch.zeros((), dtype=torch.int32), ospecs["step"])}
 
 
+def tp_place(tree: dict, specs: dict) -> dict:
+    """``rules.distribute`` without its scatter from rank 0: every rank drew the same
+    ``tree`` from seed 0 on the card, so each cuts its own shards from its copy and
+    no byte crosses the gloo group (which stages each through host memory)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return {n: distribute_tensor(t.detach(), specs[n].mesh, specs[n].placements, src_data_rank=None)
+            for n, t in tree.items()}
+
+
 def tp_serve_whisper_cfg():
     from repro_torch.configs import ARCHS
 
@@ -2217,6 +2326,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import get_model
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules
+import repro_torch.train.step as S
 from repro_torch.train.step import make_train_step
 
 mesh = make_host_mesh(model=cs.TP_SIZE, device="cuda")
@@ -2266,6 +2376,27 @@ for name, layers, impl in cs.TP_TWINS:
     del got, ref
     torch.cuda.empty_cache()
 out["twins"] = twins
+
+# (h) the hooked f32 twins: accum_steps and each compress method against make_train_fn's on the whole batch
+hooked = {}
+for name, layers, impl in cs.TP_HOOK_TWINS:
+    cfg = cs.tp_hook_cfg(name, layers, impl)
+    for compress in cs.TP_COMPRESS:
+        print(f"rank {rank}: hooked twin {name} {compress}", file=sys.stderr, flush=True)
+        heads.clear()
+        got = cs.tp_hook_step(cfg, compress, mesh)
+        ref = torch.load(f"{tmp}/hook_{name}_{compress}.pt", map_location="cpu", mmap=True)
+        m, rm = got["metrics"], ref["metrics"]
+        hooked[f"{name}/{compress}"] = {
+            "layers": layers, "loss": [m["loss"], rm["loss"]],
+            "loss_rel": abs(m["loss"] - rm["loss"]) / abs(rm["loss"]),
+            "grad_norm_rel": abs(m["grad_norm"] - rm["grad_norm"]) / rm["grad_norm"],
+            **cs.tp_hook_compare(got, ref, got["specs"], mesh, compress),
+            "launches": got["launches"], "launches_1x1": ref["launches"], "launches_plain": twins[name]["launches"],
+            "heads": sorted(set(map(tuple, heads)))}
+        del got, ref
+        torch.cuda.empty_cache()
+out["hooked"] = hooked
 
 
 def rel(a, b):
@@ -2322,8 +2453,8 @@ print(f"rank {rank}: full width", file=sys.stderr, flush=True)
 cfg = rules.pad_config_for_mesh(ARCHS["mamba2-780m"], mesh)
 step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, adamw.AdamWConfig(**cs.TRAIN_OCFG))
 model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-params = rules.distribute(dict(model.named_parameters()), pspecs)
-opt = rules.distribute(adamw.init(model), ospecs)
+params = cs.tp_place(dict(model.named_parameters()), pspecs)
+opt = cs.tp_opt_state(params, ospecs)
 del model
 batch = cs.cuda_batch(cfg, **cs.TRAIN_DATA)
 step(params, opt, batch)
@@ -2339,6 +2470,34 @@ out["full"] = {"step_ms_gloo": (time.perf_counter() - t0) * 1e3, "launches": cs.
                "metrics": {k: v.item() for k, v in metrics.items()}, "heads": sorted(set(map(tuple, heads))),
                "local_bytes": sum(p.to_local().numel() * p.to_local().element_size() for p in params.values()),
                "params": sum(p.numel() for p in params.values())}
+
+# (i) one more step on the same params and batch, two microbatches of 2 x 1024 tokens, int8-compressed
+print(f"rank {rank}: full width, accumulating and compressing", file=sys.stderr, flush=True)
+step, *_ = make_train_step(cfg, mesh, adamw.AdamWConfig(**cs.TRAIN_OCFG), accum_steps=2, compress="int8")
+compress_ms, compress_shards = [], S._compress_shards
+
+
+def timed_compress(method, grads):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = compress_shards(method, grads)
+    torch.cuda.synchronize()
+    compress_ms.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+S._compress_shards = timed_compress
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+heads.clear()
+cs.zero_counts()
+t0 = time.perf_counter()
+_, _, metrics = step(params, opt, batch)
+torch.cuda.synchronize()
+S._compress_shards = compress_shards
+out["full_accum"] = {"step_ms_gloo": (time.perf_counter() - t0) * 1e3, "compress_ms_gloo": compress_ms,
+                     "launches": cs.kernel_counts(), "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "metrics": {k: v.item() for k, v in metrics.items()}, "heads": sorted(set(map(tuple, heads)))}
 del step, params, opt, batch, metrics
 torch.cuda.empty_cache()
 
@@ -2347,7 +2506,7 @@ print(f"rank {rank}: moe full width", file=sys.stderr, flush=True)
 cfg = cs.tp_moe_cfg()
 step, _, pspecs, _, ospecs = make_train_step(cfg, mesh, adamw.AdamWConfig(**cs.TRAIN_OCFG))
 model = get_model(cfg).init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-params = rules.distribute(dict(model.named_parameters()), pspecs)
+params = cs.tp_place(dict(model.named_parameters()), pspecs)
 del model
 opt = cs.tp_opt_state(params, ospecs)
 batch = cs.cuda_batch(cfg, **cs.TRAIN_DATA)
@@ -2410,7 +2569,19 @@ def phase_tp() -> dict:
     each rank's ``max_memory_allocated``.  (g) deepseek-moe-16b at full width,
     TP_MOE_LAYERS of its 28 layers, bf16, flash, ``remat`` on, 4 x 1024
     tokens: one warm step per rank, 2 flash launches a layer on 8 q over 8 kv
-    heads and 1 plain backward, memory a rank."""
+    heads and 1 plain backward, memory a rank.  (h) f32 twins of mamba2-780m
+    and deepseek-moe-16b (TP_HOOK_TWINS, the MoE's capacity at E / K so that
+    no token drops) whose ``make_train_step`` takes TP_HOOKS (two microbatches
+    of 1 x 512) and each of TP_COMPRESS, against ``make_train_fn`` with the same
+    keywords on the whole batch in this process: loss 1e-4 rel., grad norm
+    1e-3 rel., each leaf's compressed gradient (each rank's shard) within
+    TP_GRAD_BAR of its largest but for at most TP_FLIPS of all elements, each
+    on its tensor's rounding or threshold boundary, each kernel launched twice
+    as often as in the plain twin's step, on the rank's heads.  (i) after (a),
+    one more step on the same params and batch with ``accum_steps=2`` and
+    ``compress="int8"``: 2 x (96 + 48) ``ssd_scan`` launches and plain
+    backwards per rank, memory a rank, the compression stage's host time
+    (synchronised; gloo's), the same metrics on both ranks."""
     import os
     import socket
 
@@ -2437,6 +2608,17 @@ def phase_tp() -> dict:
                        | {"grads": {n: g.cpu() for n, g in ref["grads"].items()}}, f"{tmp}/{name}.pt")
             del ref
             torch.cuda.empty_cache()
+        for name, layers, impl in TP_HOOK_TWINS:
+            cfg = tp_hook_cfg(name, layers, impl)
+            for compress in TP_COMPRESS:
+                ref = tp_hook_step(cfg, compress)
+                # top-k keeps 1% of each tensor: saved sparse, a fiftieth of the bytes
+                torch.save({"metrics": ref["metrics"], "launches": ref["launches"],
+                            "bounds": tp_hook_bounds(ref["grads"], compress),
+                            "grads": {n: (g.to_sparse() if compress == "topk" else g).cpu()
+                                      for n, g in ref["grads"].items()}}, f"{tmp}/hook_{name}_{compress}.pt")
+                del ref
+                torch.cuda.empty_cache()
         for name, layers in TP_DECODE_TWINS:
             cfg = tp_twin_cfg(name, layers, "xla")
             torch.save(tp_serve_run(cfg, mesh, *tp_decode_batch(cfg), TP_DECODE["steps"]), f"{tmp}/decode_{name}.pt")
@@ -2499,6 +2681,22 @@ def phase_tp() -> dict:
             if twin["launches"] != twin["launches_1x1"] or idle or wrong:
                 fail(f"phase_tp rank {r['rank']} {name}: launches {twin['launches']}, on (1, 1) "
                      f"{twin['launches_1x1']}, heads {twin['heads']}, expected {local}")
+        for key, h in r["hooked"].items():
+            name = key.split("/")[0]
+            tcfg = ARCHS[name]
+            local = {"ssd_scan": tcfg.ssm_num_heads // TP_SIZE if tcfg.ssm_state else None,
+                     "flash_attention": tcfg.num_heads // TP_SIZE if tcfg.family == "moe" else None}
+            # one forward a microbatch: each kernel twice as often as in the plain twin's step, on the rank's heads
+            doubled = {k: [2 * v for v in h["launches_plain"][k]] for k in h["launches_plain"]}
+            wrong = [x for x in h["heads"] if x[1] != local[x[0]]]
+            if h["loss_rel"] > 1e-4 or h["grad_norm_rel"] > 1e-3 or h["grad_rel_max"] > TP_GRAD_BAR \
+                    or h["flips_share"] > TP_FLIPS or h["flips_off_boundary"] \
+                    or h["launches"] != h["launches_1x1"] or h["launches"] != doubled or wrong \
+                    or not any(h["launches"][k][0] for k, v in local.items() if v):
+                fail(f"phase_tp rank {r['rank']} hooked twin {key}: {h} (bars: loss 1e-4, grad norm 1e-3, grads "
+                     f"{TP_GRAD_BAR} but {TP_FLIPS} of the elements on a boundary; launches twice the plain "
+                     f"step's {doubled}, "
+                     f"heads {local})")
         for name, d in r["decode"].items():
             tcfg = ARCHS[name]
             half = (d["max_len"] + (tcfg.num_patches if tcfg.family == "vlm" else 0)) // TP_SIZE
@@ -2522,6 +2720,12 @@ def phase_tp() -> dict:
         if full["launches"] != want or full["heads"] != [["ssd_scan", cfg.ssm_num_heads // TP_SIZE, "torch.bfloat16"]] \
                 or not np.isfinite(full["metrics"]["loss"]) or full["metrics"] != ranks[0]["full"]["metrics"]:
             fail(f"phase_tp rank {r['rank']} full-width step: {full}, expected launches {want}")
+        acc = r["full_accum"]
+        want = {"ssd_scan": [2 * n for n in remat_launches(cfg, cfg.num_layers)], "flash_attention": [0, 0]}
+        if acc["launches"] != want or acc["heads"] != full["heads"] or len(acc["compress_ms_gloo"]) != 1 \
+                or not np.isfinite(acc["metrics"]["loss"]) or acc["metrics"] != ranks[0]["full_accum"]["metrics"]:
+            fail(f"phase_tp rank {r['rank']} full-width accumulating, compressing step: {acc}, "
+                 f"expected launches {want}")
         moe = r["full_moe"]
         want = {"ssd_scan": [0, 0], "flash_attention": remat_launches(moe_cfg, moe_cfg.num_layers)}
         local = ["flash_attention", moe_cfg.num_heads // TP_SIZE, moe_cfg.num_kv_heads // TP_SIZE, "torch.bfloat16"]
@@ -2541,6 +2745,11 @@ def phase_tp() -> dict:
                      "remat": cfg.remat,
                      "note": "step_ms_gloo stages every collective through host memory: not TP's speed",
                      **{r["rank"]: r["full"] for r in ranks}},
+            "hooked_twins": {r["rank"]: r["hooked"] for r in ranks},
+            "full_accum": {"arch": cfg.name, "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]],
+                           "accum_steps": 2, "compress": "int8", "remat": cfg.remat,
+                           "note": "host times stage every collective through host memory: not TP's speed",
+                           **{r["rank"]: r["full_accum"] for r in ranks}},
             "full_moe": {"arch": moe_cfg.name, "layers": [moe_cfg.num_layers, ARCHS[moe_cfg.name].num_layers],
                          "tokens_per_step": [TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]], "remat": moe_cfg.remat,
                          "note": "step_ms_gloo stages every collective through host memory: not TP's speed",
@@ -2613,9 +2822,13 @@ def main() -> None:
     # the tensor-parallel paths, per rank of the (1, 2) mesh: the full-width mamba2 and MoE steps and the twins
     for rank, twins in tp["twins"].items():
         ssd_row["launches_by_path"][f"mamba2_tp_train_rank{rank}"] = tp["full"][rank]["launches"]["ssd_scan"][0]
+        ssd_row["launches_by_path"][f"mamba2_tp_train_accum_rank{rank}"] = \
+            tp["full_accum"][rank]["launches"]["ssd_scan"][0]
         fa_row["launches_by_path"][f"moe_tp_train_rank{rank}"] = tp["full_moe"][rank]["launches"]["flash_attention"][0]
         for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row)):
             row["launches_by_path"][f"tp_twins_rank{rank}"] = sum(t["launches"][name][0] for t in twins.values())
+            row["launches_by_path"][f"tp_hooked_twins_rank{rank}"] = sum(
+                h["launches"][name][0] for h in tp["hooked_twins"][rank].values())
             row["launches_by_path"][f"tp_decode_twins_rank{rank}"] = sum(
                 d["prefill_launches"][name][0] for d in tp["decode_twins"][rank].values())
     for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row)):  # the plain recomputes in training

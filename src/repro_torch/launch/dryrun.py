@@ -79,7 +79,8 @@ class Census(TorchDispatchMode):
 
     ``trace`` gathers FLOPs, bytes read and written by each op that is not a
     view (its tensor inputs and outputs), and each functional collective
-    (``wait_tensor`` aside).  Memory is counted by storage: an output that
+    (``wait_tensor`` and ``_wrap_tensor_autograd`` aside: the functional ops'
+    waits, and the wrapper they return on a real process group).  Memory is counted by storage: an output that
     aliases none of its op's inputs is a new allocation, live until its
     storage is freed (a weak reference's callback, as
     ``torch.distributed._tools.mem_tracker`` tracks storages, without its
@@ -122,7 +123,7 @@ class Census(TorchDispatchMode):
         packet = func._overloadpacket
         if packet in flop_registry:
             self.trace.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        if func.namespace == "_c10d_functional" and packet.__name__ != "wait_tensor":
+        if func.namespace == "_c10d_functional" and packet.__name__ not in ("wait_tensor", "_wrap_tensor_autograd"):
             name = _COLLECTIVES.get(packet.__name__)
             if name is None:
                 raise NotImplementedError(f"the census does not price {func}")

@@ -17,7 +17,12 @@ forward; their backward is the gradient of the plain version, recomputed
 
 ``make_train_step`` is the sharded step over a ``DeviceMesh``: params and
 AdamW state live between steps as DTensors in the placements of
-``repro_torch.sharding.rules``, each rank holding only its shards.
+``repro_torch.sharding.rules``, each rank holding only its shards.  It
+takes ``make_train_fn``'s keywords: ``accum_steps`` slices microbatches
+from the global batch before each rank takes its rows, and sums their
+gradients before the one reduce-scatter; ``compress`` runs on the
+reduce-scattered shards, per tensor of the reference's stacked tree, with
+only per-tensor maxima (int8) or counts (top-k) on the wire.
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps over
 the same placements, with the cache in ``rules.cache_specs``'.  Each rank
 runs the model on its rows of the batch (the data axes).  Where the model
@@ -49,6 +54,7 @@ from repro_torch.models.layers import Attention, kv_head_map, kv_map
 from repro_torch.models.transformer import nll_sum
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules, tp
+from repro_torch.train.compress import dequantize_int8
 
 
 def abstract_params(cfg: ArchConfig) -> nn.Module:
@@ -92,20 +98,27 @@ def _loss_and_grad(cfg: ArchConfig, model: nn.Module, loss, leaves: dict[str, to
     return value, dict(zip(leaves, grads))
 
 
-def _stack_layers(grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The reference's tree stacks each layer leaf over the layers (``layers/mlp/gate``
-    is (L, D, F)); group the port's per-layer grads the same way, so that per-tensor
-    compression sees the reference's tensors."""
-    parts: dict[str, list[tuple[int, torch.Tensor]]] = {}
-    for name, g in grads.items():
+def _layer_groups(names) -> dict[str, list[str]]:
+    """The port's names grouped as the reference's tree holds them: each layer
+    leaf's per-layer names (``layers.3.mlp.gate``) under its stacked name
+    (``layers.mlp.gate``), in layer order; every other name alone under itself."""
+    parts: dict[str, list[tuple[int, str]]] = {}
+    for name in names:
         stack, _, rest = name.partition(".")
         i, _, leaf = rest.partition(".")
         if stack in STACKED and i.isdigit():
-            parts.setdefault(f"{stack}.{leaf}", []).append((int(i), g))
+            parts.setdefault(f"{stack}.{leaf}", []).append((int(i), name))
         else:
-            parts[name] = g
-    return {k: torch.stack([g for _, g in sorted(v, key=lambda t: t[0])]) if isinstance(v, list) else v
-            for k, v in parts.items()}
+            parts[name] = [(0, name)]
+    return {k: [n for _, n in sorted(v)] for k, v in parts.items()}
+
+
+def _stack_layers(grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The reference's tree stacks each layer leaf over the layers (``layers/mlp/gate``
+    is (L, D, F)); group the port's per-layer grads the same way (``_layer_groups``),
+    so that per-tensor compression sees the reference's tensors."""
+    return {k: grads[k] if names == [k] else torch.stack([grads[n] for n in names])
+            for k, names in _layer_groups(grads).items()}
 
 
 def _unstack_layers(stacked: dict[str, torch.Tensor], names) -> dict[str, torch.Tensor]:
@@ -317,8 +330,67 @@ def _reduce_squares(sq: list[torch.Tensor], grads: list[DTensor]) -> torch.Tenso
     return torch.stack(out)
 
 
+def _compress_shards(method: str, grads: dict[str, DTensor], topk_frac: float = 0.01) -> dict[str, torch.Tensor]:
+    """``compress_grads`` (without error state) of the reference's tensors, each
+    layer leaf stacked over the layers (``_layer_groups``), computed on each rank's
+    shards of ``grads``: this rank's shard of each compressed gradient, bitwise
+    the whole tensor's compressed, cut as ``grads`` cuts it.  No rank gathers a
+    tensor.  ``int8``: each tensor's max |g| is its shards' maxima all-reduced
+    (MAX) over the mesh, then each rank rounds its own shard.  ``topk``: each
+    tensor's k-th largest |g| (k of the whole stacked tensor) is found by
+    bisection over the int32 bit patterns of |g|, which order as the
+    non-negative floats do: 31 rounds, each one all-reduce (an axis) of a
+    vector of counts, one a tensor, where only the first rank of each
+    ``Replicate`` mesh dim counts, so that every element is counted once.
+    Each element with |g| at or above it is kept, ties included."""
+    mesh = next(iter(grads.values())).device_mesh
+    axes = [tp.Group(mesh.get_group(i), mesh.get_local_rank(i), mesh.size(i)) for i in range(mesh.ndim)
+            if mesh.size(i) > 1]
+
+    def over_mesh(x: torch.Tensor, op: str) -> torch.Tensor:
+        for g in axes:
+            x = tp._all_reduce(x, g, op)
+        return x
+
+    groups = list(_layer_groups(grads).values())
+    local = {n: g.to_local() for n, g in grads.items()}
+    dev = next(iter(local.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out = {}
+    if method == "int8":
+        top = over_mesh(torch.stack([torch.stack([local[n].abs().max() if local[n].numel() else zero
+                                                  for n in names]).max() for names in groups]), "max")
+        for j, names in enumerate(groups):
+            scale = top[j] / 127.0 + 1e-12  # quantize_int8's scale, of the whole tensor
+            for n in names:
+                out[n] = dequantize_int8(torch.clamp(torch.round(local[n] / scale), -127, 127).to(torch.int8), scale)
+        return out
+    if method != "topk":
+        raise ValueError(method)
+    k = torch.tensor([max(1, int(sum(grads[n].numel() for n in names) * topk_frac)) for names in groups],
+                     dtype=torch.int64, device=dev)
+    first = [all(mesh.get_local_rank(i) == 0 for i, pl in enumerate(grads[names[0]].placements)
+                 if not isinstance(pl, Shard)) for names in groups]
+    bits = [torch.cat([local[n].reshape(-1) for n in names]).abs().view(torch.int32) if own else None
+            for names, own in zip(groups, first)]
+    none = torch.zeros((), dtype=torch.int64, device=dev)
+    lo = torch.zeros(len(groups), dtype=torch.int64, device=dev)  # at least k elements at or above lo
+    hi = torch.full((len(groups),), 2**31, dtype=torch.int64, device=dev)  # fewer than k at or above hi
+    for _ in range(31):
+        mid = (lo + hi) // 2
+        m32 = mid.to(torch.int32)
+        above = over_mesh(torch.stack([none if b is None else (b >= m32[j]).sum() for j, b in enumerate(bits)]), "sum")
+        lo, hi = torch.where(above >= k, mid, lo), torch.where(above >= k, hi, mid)
+    del bits
+    thresh = lo.to(torch.int32).view(torch.float32)
+    for j, names in enumerate(groups):
+        for n in names:
+            out[n] = torch.where(local[n].abs() >= thresh[j], local[n], 0.0)
+    return out
+
+
 def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None, *, layout: str = "baseline",
-                    grad_dtype: str = "float32", **kw):
+                    grad_dtype: str = "float32", compress: str = "none", accum_steps: int = 1):
     """The train step sharded over ``mesh``; returns ``(step, params_shape, pspecs,
     opt_shape, ospecs)`` as the reference does.
 
@@ -328,31 +400,43 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
     caller places params and state with ``rules.distribute``.  ``step(params,
     opt_state, batch)`` takes params (``{name: DTensor}``) and state in those
     placements and the global batch, updates both in place, and returns them
-    with the metrics of ``make_train_fn`` on the whole batch.  Per step:
+    with the metrics of ``make_train_fn`` with the same keywords on the whole
+    batch.  Per step:
 
-    - each rank takes its rows of the batch (``rules.batch_specs``);
-    - each param is all-gathered (in ``grad_dtype``, cast before the gather)
-      and the model runs on the rank's rows: the loss is the rank's summed
-      token loss over the global token count, so the ranks' losses and
-      gradients sum to the whole batch's (a MoE's load-balancing loss enters
-      as the mean of the ranks' own).  The gather is ``full_tensor`` without
-      TP; under TP (``model_group``) it runs over the data axes only, each
-      rank keeps its model-axis shards, and the model computes on them
-      (``sharding/tp.py``): each split leaf's gradient is then that shard's,
-      each replicated leaf's is whole on every rank of the group;
+    - each param is all-gathered once (in ``grad_dtype``, cast before the
+      gather): ``full_tensor`` without TP; under TP (``model_group``) over the
+      data axes only, each rank keeping its model-axis shards, on which the
+      model computes (``sharding/tp.py``): each split leaf's gradient is then
+      that shard's, each replicated leaf's is whole on every rank of the group;
+    - with ``accum_steps`` a > 1, microbatch i is rows [i (B // a), (i + 1)
+      (B // a)) of the global batch, as ``make_train_fn`` slices it (rows past
+      a (B // a) are dropped); each rank takes its rows of each microbatch
+      (``rules.batch_specs``) and runs the model on them: a microbatch's loss
+      is the rank's summed token loss over that microbatch's global token
+      count, so the ranks' losses and gradients sum to the microbatch's (a
+      MoE's load-balancing loss enters as the mean of the data ranks' own).
+      The losses and the float32 gradients are summed over the microbatches
+      and divided by a on the rank, so an accumulated step runs the
+      collectives of a plain one;
     - the gradients are summed over the mesh dims that split the batch and
       scattered into the AdamW state's placements (``redistribute``: a
-      reduce-scatter), the global grad norm is reduced from the shards, and
-      AdamW updates each rank's shards in place.  The state may lie in other
-      placements than the params (ZeRO-1: the ``dp-only`` specs, as the
-      reference's dry-run sets them): the params' shards are then taken in
-      the state's placements, updated, and gathered back into their own.
+      reduce-scatter); with ``compress`` (``"int8"``, ``"topk"``) each rank
+      then compresses its shards as ``compress_grads`` compresses the
+      reference's stacked tensors (``_compress_shards``: only per-tensor
+      maxima or counts cross the wire, no error state, as in
+      ``make_train_fn``); the global grad norm is reduced from the
+      (compressed) shards, and AdamW clips by it and updates each rank's
+      shards in place.  The state may lie in other placements than the
+      params (ZeRO-1: the ``dp-only`` specs, as the reference's dry-run sets
+      them): the params' shards are then taken in the state's placements,
+      updated, and gathered back into their own.
 
-    ``compress`` and ``accum_steps`` are ``make_train_fn``'s alone.
+    A ``grad_dtype`` other than float32 neither accumulates nor compresses, as
+    in the reference's ``make_train_fn``.
     """
-    if kw:
-        raise ValueError(f"make_train_step takes no {sorted(kw)}: compression and accumulation are make_train_fn's")
     ocfg = ocfg or adamw.AdamWConfig()
+    if grad_dtype != "float32":
+        compress, accum_steps = "none", 1
     m = get_model(cfg)
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
@@ -364,31 +448,50 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
     dt = getattr(torch, grad_dtype)
 
     def step(params: dict[str, DTensor], opt_state: dict, batch: dict[str, torch.Tensor]):
-        rows, tokens = _rows(cfg, mesh, batch, layout)
-        split = [isinstance(pl, Shard) for pl in tokens]
-        partial = [Partial() if s else Replicate() for s in split]
-        shards = math.prod(mesh.size(i) for i, s in enumerate(split) if s)
-        count = (batch["labels"] >= 0).to(torch.float32).sum().to(mesh.device_type).clamp(min=1.0)
+        n = next(iter(batch.values())).shape[0] // accum_steps
+        micro = [{k: x[i * n:(i + 1) * n] for k, x in batch.items()} for i in range(accum_steps)]
+        full = _leaves({n: p.to(dt) if p.dtype == torch.float32 else p for n, p in params.items()}, keep)
+        leaves = {n: t.requires_grad_() for n, t in full.items()}
+        loss = grads = None
+        for mb in micro:
+            rows, tokens = _rows(cfg, mesh, mb, layout)
+            split = [isinstance(pl, Shard) for pl in tokens]
+            shards = math.prod(mesh.size(i) for i, s in enumerate(split) if s)
+            count = (mb["labels"] >= 0).to(torch.float32).sum().to(mesh.device_type).clamp(min=1.0)
 
-        def loss_of(cfg, model, local):
-            logits, aux = m.forward(cfg, model, local)
-            return nll_sum(logits, local["labels"], group)[0] / count + 0.01 * aux / shards
+            def loss_of(cfg, model, local, count=count, shards=shards):
+                logits, aux = m.forward(cfg, model, local)
+                return nll_sum(logits, local["labels"], group)[0] / count + 0.01 * aux / shards
+
+            mloss, mgrads = _loss_and_grad(cfg, shell, loss_of, leaves, rows)
+            if grads is None:
+                loss, grads = mloss, mgrads
+            else:
+                loss = loss + mloss
+                grads = {n: grads[n] + g for n, g in mgrads.items()}
+            del mgrads
+        del full, leaves
+        partial = [Partial() if s else Replicate() for s in split]
 
         def held(n):  # the placements of this rank's gradient of leaf n: partial over the batch's dims
             return partial if keep is None else [Partial() if s else pl for s, pl in zip(split, keep[n])]
 
-        full = _leaves({n: p.to(dt) if p.dtype == torch.float32 else p for n, p in params.items()}, keep)
-        leaves = {n: t.requires_grad_() for n, t in full.items()}
-        loss, grads = _loss_and_grad(cfg, shell, loss_of, leaves, rows)
-        del full, leaves
         with torch.no_grad():
+            if accum_steps > 1:
+                loss = loss / accum_steps
+                grads = {n: g / accum_steps for n, g in grads.items()}
             for n, (stored, compute) in ({} if keep is None else keep.turn).items():
                 grads[n] = tp.all_to_all(grads[n], stored, compute, group)
             loss = DTensor.from_local(loss, mesh, partial).full_tensor()
             into = {n: opt_state["mu"][n].placements for n in params}
-            sharded = [DTensor.from_local(grads.pop(n), mesh, held(n)).redistribute(mesh, into[n]) for n in params]
-            local = [g.to_local() for g in sharded]
-            gnorm = _reduce_squares([g.to(torch.float32).square().sum() for g in local], sharded).sum().sqrt()
+            sharded = {n: DTensor.from_local(grads.pop(n), mesh, held(n)).redistribute(mesh, into[n]) for n in params}
+            if compress == "none":
+                local = [g.to_local() for g in sharded.values()]
+            else:
+                squeezed = _compress_shards(compress, sharded)
+                local = [squeezed[n] for n in params]
+            gnorm = _reduce_squares([g.to(torch.float32).square().sum() for g in local],
+                                    list(sharded.values())).sum().sqrt()
             state = {"mu": {n: t.to_local() for n, t in opt_state["mu"].items()},
                      "nu": {n: t.to_local() for n, t in opt_state["nu"].items()},
                      "step": opt_state["step"].to_local()}
