@@ -32,6 +32,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..obs import span
 from .config import ArchConfig
 from ..sharding import tp
 from .layers import (
@@ -221,14 +222,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
 @torch.inference_mode()
 def prefill(cfg: ArchConfig, params: EncDec, batch: dict[str, Any], max_len: int):
     """Encode the frames and run the prompt, returning (last-position logits, primed cache)."""
-    _check(cfg, params)
-    b, s = batch["tokens"].shape
-    f = batch["frame_embeds"].shape[1]
-    cache = init_cache(dataclasses.replace(cfg, encoder_frames=f), b, max(max_len, s),
-                       _dtype(cfg.compute_dtype), batch["tokens"].device)
-    x = _prefix(cfg, params, batch, cache)
-    cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    return tp.gather(_logits(cfg, params, x[:, -1:]), -1, params.embedding.tp_group), cache
+    with span("model.prefill"):
+        _check(cfg, params)
+        b, s = batch["tokens"].shape
+        f = batch["frame_embeds"].shape[1]
+        cache = init_cache(dataclasses.replace(cfg, encoder_frames=f), b, max(max_len, s),
+                           _dtype(cfg.compute_dtype), batch["tokens"].device)
+        x = _prefix(cfg, params, batch, cache)
+        cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+        with span("model.head"):
+            return tp.gather(_logits(cfg, params, x[:, -1:]), -1, params.embedding.tp_group), cache
 
 
 @torch.inference_mode()
@@ -241,14 +244,19 @@ def decode_step(cfg: ArchConfig, params: EncDec, cache, tokens: torch.Tensor):
     cross K/V may each be the rank's shard of its sequence, read through each
     attention's ``seq_split``; ``pos`` stays global.
     """
-    _check(cfg, params)
-    pos = int(cache["pos"])
-    x = _embed_tokens(cfg, params, tokens, pos)
-    new_k, new_v = cache["k"].clone(), cache["v"].clone()
-    for i, lp in enumerate(params.dec_layers):
-        h, _ = attention_decode(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps),
-                                {"k": new_k[i], "v": new_v[i]}, pos, rope=False)
-        x = _dec_tail(cfg, lp, x + h, (cache["cross_k"][i], cache["cross_v"][i]), cross_attention_decode)
-    new_cache = dict(cache)
-    new_cache["k"], new_cache["v"], new_cache["pos"] = new_k, new_v, cache["pos"] + 1
-    return tp.gather(_logits(cfg, params, x), -1, params.embedding.tp_group), new_cache
+    with span("model.decode_step"):
+        _check(cfg, params)
+        pos = int(cache["pos"])
+        with span("model.embed"):
+            x = _embed_tokens(cfg, params, tokens, pos)
+        with span("model.new_cache"):
+            new_k, new_v = cache["k"].clone(), cache["v"].clone()
+        for i, lp in enumerate(params.dec_layers):
+            with span("model.attention", ("row", i)):
+                h, _ = attention_decode(cfg, lp.self_attn, layernorm(lp.ln1, x, cfg.norm_eps),
+                                        {"k": new_k[i], "v": new_v[i]}, pos, rope=False)
+                x = _dec_tail(cfg, lp, x + h, (cache["cross_k"][i], cache["cross_v"][i]), cross_attention_decode)
+        new_cache = dict(cache)
+        new_cache["k"], new_cache["v"], new_cache["pos"] = new_k, new_v, cache["pos"] + 1
+        with span("model.head"):
+            return tp.gather(_logits(cfg, params, x), -1, params.embedding.tp_group), new_cache

@@ -43,6 +43,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..obs import span
 from .config import ArchConfig
 from ..sharding import tp
 from .layers import (
@@ -149,8 +150,9 @@ def _ffn(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor) -> tuple[torch.Tensor
 
 
 def _dense_body(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, positions: torch.Tensor):
-    x = x + attention(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
-    return _ffn(cfg, lp, x)
+    with span("model.attention"):
+        x = x + attention(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
+        return _ffn(cfg, lp, x)
 
 
 def _shared_site(cfg: ArchConfig, i: int) -> bool:
@@ -170,7 +172,8 @@ def _mamba2_body(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, positions
     """The reference's scan body for the ssm and hybrid families: Mamba2 layer ``i``
     and, at a shared site, the shared block."""
     lp = params.layers[i]
-    x = x + lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps))
+    with span("model.mamba2", ("layer", i)):
+        x = x + lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps))
     if _shared_site(cfg, i):
         x, _ = _dense_body(cfg, params.shared_block, x, positions)
     return x
@@ -273,30 +276,38 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
     site's) may be the rank's sequence shard, which ``attention_decode`` reads
     through its attention's ``seq_split``.
     """
-    _check(cfg, params)
-    x = embed(cfg, params.embedding, tokens)
-    new_cache: dict[str, Any] = {"pos": cache["pos"] + 1}
-    if cfg.family != "ssm":
-        pos = int(cache["pos"])
-        new_k, new_v = cache["k"].clone(), cache["v"].clone()
-        new_cache["k"], new_cache["v"] = new_k, new_v
-    if cfg.family in ("ssm", "hybrid"):
-        states, convs = [], []
-        for i, lp in enumerate(params.layers):
-            sc = {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}
-            h, new_sc = lp.ssm.decode(rmsnorm(lp.norm, x, cfg.norm_eps), sc)
-            x = x + h
-            states.append(new_sc["state"])
-            convs.append(new_sc["conv"])
-            if _shared_site(cfg, i):
-                site = (i + 1) // cfg.attn_every - 1
-                x = _attn_block_decode(cfg, params.shared_block, x, new_k[site], new_v[site], pos)
-        new_cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
-    else:
-        for i, lp in enumerate(params.layers):
-            x = _attn_block_decode(cfg, lp, x, new_k[i], new_v[i], pos)
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return vocab_logits(cfg, params.embedding, x), new_cache
+    with span("model.decode_step"):
+        _check(cfg, params)
+        with span("model.embed"):
+            x = embed(cfg, params.embedding, tokens)
+        new_cache: dict[str, Any] = {"pos": cache["pos"] + 1}
+        if cfg.family != "ssm":
+            pos = int(cache["pos"])
+            with span("model.new_cache"):
+                new_k, new_v = cache["k"].clone(), cache["v"].clone()
+            new_cache["k"], new_cache["v"] = new_k, new_v
+        if cfg.family in ("ssm", "hybrid"):
+            states, convs = [], []
+            for i, lp in enumerate(params.layers):
+                with span("model.mamba2", ("layer", i)):
+                    sc = {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}
+                    h, new_sc = lp.ssm.decode(rmsnorm(lp.norm, x, cfg.norm_eps), sc)
+                    x = x + h
+                    states.append(new_sc["state"])
+                    convs.append(new_sc["conv"])
+                if _shared_site(cfg, i):
+                    site = (i + 1) // cfg.attn_every - 1
+                    with span("model.attention", ("row", site)):
+                        x = _attn_block_decode(cfg, params.shared_block, x, new_k[site], new_v[site], pos)
+            with span("model.new_cache"):
+                new_cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
+        else:
+            for i, lp in enumerate(params.layers):
+                with span("model.attention", ("row", i)):
+                    x = _attn_block_decode(cfg, lp, x, new_k[i], new_v[i], pos)
+        with span("model.head"):
+            x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+            return vocab_logits(cfg, params.embedding, x), new_cache
 
 
 @torch.inference_mode()
@@ -310,35 +321,42 @@ def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
     whatever ``attention_impl`` says, as in the reference.  A vlm patch prefix
     extends the cached sequence, so ``max_len`` grows by its length.
     """
-    _check(cfg, params)
-    x = _embed_inputs(cfg, params, batch)
-    b, s = x.shape[:2]
-    cd = _dtype(cfg.compute_dtype)
-    max_len = max(max_len + (s - batch["tokens"].shape[1]), s)
-    positions = _positions(b, s, x.device)
-    cache: dict[str, Any] = _kv_cache(cfg, b, max_len, cd, x.device)
+    with span("model.prefill"):
+        _check(cfg, params)
+        with span("model.embed"):
+            x = _embed_inputs(cfg, params, batch)
+        b, s = x.shape[:2]
+        cd = _dtype(cfg.compute_dtype)
+        max_len = max(max_len + (s - batch["tokens"].shape[1]), s)
+        positions = _positions(b, s, x.device)
+        cache: dict[str, Any] = _kv_cache(cfg, b, max_len, cd, x.device)
 
-    def attn_block(lp: DenseLayer, x: torch.Tensor, row: int) -> torch.Tensor:
-        h, k, v = attention_prefill(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
-        x, _ = _ffn(cfg, lp, x + h)
-        cache["k"][row, :, :s] = k.to(cache["k"].dtype)
-        cache["v"][row, :, :s] = v.to(cache["v"].dtype)
-        return x
+        def attn_block(lp: DenseLayer, x: torch.Tensor, row: int) -> torch.Tensor:
+            with span("model.attention", ("row", row)):
+                h, k, v = attention_prefill(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
+                x, _ = _ffn(cfg, lp, x + h)
+                with span("model.new_cache"):
+                    cache["k"][row, :, :s] = k.to(cache["k"].dtype)
+                    cache["v"][row, :, :s] = v.to(cache["v"].dtype)
+                return x
 
-    if cfg.family in ("ssm", "hybrid"):
-        states, convs = [], []
-        for i, lp in enumerate(params.layers):
-            h, state, conv_tail = lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps), return_state=True)
-            x = x + h
-            states.append(state.to(torch.float32))
-            convs.append(conv_tail.to(cd))
-            if _shared_site(cfg, i):
-                x = attn_block(params.shared_block, x, (i + 1) // cfg.attn_every - 1)
-        cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
-    else:
-        for i, lp in enumerate(params.layers):
-            x = attn_block(lp, x, i)
-    cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = vocab_logits(cfg, params.embedding, x[:, -1:])
-    return logits, cache
+        if cfg.family in ("ssm", "hybrid"):
+            states, convs = [], []
+            for i, lp in enumerate(params.layers):
+                with span("model.mamba2", ("layer", i)):
+                    h, state, conv_tail = lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps), return_state=True)
+                    x = x + h
+                    states.append(state.to(torch.float32))
+                    convs.append(conv_tail.to(cd))
+                if _shared_site(cfg, i):
+                    x = attn_block(params.shared_block, x, (i + 1) // cfg.attn_every - 1)
+            with span("model.new_cache"):
+                cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
+        else:
+            for i, lp in enumerate(params.layers):
+                x = attn_block(lp, x, i)
+        cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+        with span("model.head"):
+            x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+            logits = vocab_logits(cfg, params.embedding, x[:, -1:])
+        return logits, cache

@@ -16,6 +16,8 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..obs import span
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -74,36 +76,37 @@ def update(cfg: AdamWConfig, grads: dict[str, torch.Tensor], state: dict,
     ``grad_norm`` is the global norm of the gradients where ``grads`` holds only
     this rank's shards of them (a sharded step); None computes it from ``grads``.
     """
-    ps = named(params)
-    state["step"] += 1
-    step = state["step"].to(torch.float32)
-    gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) if cfg.grad_clip else 1.0
-    lr = lr_at(cfg, state["step"])
-    b1c = 1 - cfg.b1 ** step
-    b2c = 1 - cfg.b2 ** step
+    with span("train.optimizer"):
+        ps = named(params)
+        state["step"] += 1
+        step = state["step"].to(torch.float32)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
+        scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) if cfg.grad_clip else 1.0
+        lr = lr_at(cfg, state["step"])
+        b1c = 1 - cfg.b1 ** step
+        b2c = 1 - cfg.b2 ** step
 
-    names = list(ps)
-    for i in range(0, len(names), CHUNK):
-        group = names[i:i + CHUNK]
-        p = [ps[n] for n in group]
-        mu = [state["mu"][n] for n in group]
-        nu = [state["nu"][n] for n in group]
-        g = torch._foreach_mul([grads[n].to(torch.float32) for n in group], scale)
-        # mu2 = b1 * mu + (1 - b1) * g;  nu2 = b2 * nu + (1 - b2) * g^2
-        torch._foreach_mul_(mu, cfg.b1)
-        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - cfg.b1))
-        torch._foreach_mul_(nu, cfg.b2)
-        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - cfg.b2))
-        del g
-        # delta = mhat / (sqrt(nhat) + eps) + wd * p;  p2 = p - lr * delta
-        den = torch._foreach_sqrt(torch._foreach_div(nu, b2c))
-        torch._foreach_add_(den, cfg.eps)
-        delta = torch._foreach_div(torch._foreach_div(mu, b1c), den)
-        del den
-        pf = [t.to(torch.float32) for t in p]
-        torch._foreach_add_(delta, torch._foreach_mul(pf, cfg.weight_decay))
-        torch._foreach_mul_(delta, lr)
-        for t, new in zip(p, torch._foreach_sub(pf, delta)):
-            t.copy_(new)
-    return {"grad_norm": gnorm, "lr": lr}
+        names = list(ps)
+        for i in range(0, len(names), CHUNK):
+            group = names[i:i + CHUNK]
+            p = [ps[n] for n in group]
+            mu = [state["mu"][n] for n in group]
+            nu = [state["nu"][n] for n in group]
+            g = torch._foreach_mul([grads[n].to(torch.float32) for n in group], scale)
+            # mu2 = b1 * mu + (1 - b1) * g;  nu2 = b2 * nu + (1 - b2) * g^2
+            torch._foreach_mul_(mu, cfg.b1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - cfg.b1))
+            torch._foreach_mul_(nu, cfg.b2)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - cfg.b2))
+            del g
+            # delta = mhat / (sqrt(nhat) + eps) + wd * p;  p2 = p - lr * delta
+            den = torch._foreach_sqrt(torch._foreach_div(nu, b2c))
+            torch._foreach_add_(den, cfg.eps)
+            delta = torch._foreach_div(torch._foreach_div(mu, b1c), den)
+            del den
+            pf = [t.to(torch.float32) for t in p]
+            torch._foreach_add_(delta, torch._foreach_mul(pf, cfg.weight_decay))
+            torch._foreach_mul_(delta, lr)
+            for t, new in zip(p, torch._foreach_sub(pf, delta)):
+                t.copy_(new)
+        return {"grad_norm": gnorm, "lr": lr}

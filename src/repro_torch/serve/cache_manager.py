@@ -14,9 +14,9 @@ with the same thresholds-on-p structure (p = metadata / (metadata + bytes)):
   reclaimed **wholesale** when the batch generation completes — no per-page
   GC walk (the transient-log economy).
 
-The manager does placement/accounting; attention kernels consume the block
-tables.  Byte accounting mirrors repro.core.io so EXPERIMENTS.md can compare
-hybrid vs all-paged vs all-slab management overhead.
+The manager does placement and reclaim accounting (``stats()``: free slabs
+and pages, the arena's use, per-page GC operations and wholesale reclaims);
+attention kernels consume the block tables.
 """
 from __future__ import annotations
 
@@ -69,8 +69,6 @@ class HybridCacheManager:
         # accounting
         self.gc_page_ops = 0
         self.wholesale_reclaims = 0
-        self.bytes_reserved = 0
-        self.bytes_used = 0
 
     # ------------------------------------------------------------------ admit
     def admit(self, seq_id: int, expected_len: int) -> SeqAlloc | None:
@@ -81,7 +79,6 @@ class HybridCacheManager:
             else:
                 slot = self._free_slabs.pop()
                 a = SeqAlloc(seq_id, "slab", start=slot)
-                self.bytes_reserved += self.cfg.slab_tokens * self.cfg.bytes_per_token
                 self.allocs[seq_id] = a
                 return a
         if kind == "transient":
@@ -91,14 +88,12 @@ class HybridCacheManager:
                 a = SeqAlloc(seq_id, "transient", start=self._arena_used)
                 self._arena_used += expected_len
                 self._arena_seqs.add(seq_id)
-                self.bytes_reserved += expected_len * self.cfg.bytes_per_token
                 self.allocs[seq_id] = a
                 return a
         npages = -(-expected_len // PAGE)
         if len(self._free_pages) < npages:
             return None  # admission control: no capacity
         a = SeqAlloc(seq_id, "paged", pages=[self._free_pages.pop() for _ in range(npages)])
-        self.bytes_reserved += npages * PAGE * self.cfg.bytes_per_token
         self.allocs[seq_id] = a
         return a
 
@@ -106,7 +101,6 @@ class HybridCacheManager:
         """Grow a sequence during decode; paged seqs take pages on demand."""
         a = self.allocs[seq_id]
         a.length = new_len
-        self.bytes_used = max(self.bytes_used, new_len * self.cfg.bytes_per_token)
         if a.kind == "paged" and new_len > len(a.pages) * PAGE:
             if not self._free_pages:
                 return False

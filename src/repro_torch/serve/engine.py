@@ -13,6 +13,7 @@ import torch
 from repro_torch.models import get_model
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _device
+from repro_torch.obs import span
 from .cache_manager import CacheConfig, HybridCacheManager
 
 
@@ -60,6 +61,33 @@ class ServeEngine:
         (encdec) per request.
         """
         assert len(requests) <= self.batch_size
+        with span("serve.run_batch", lambda: f"batch={len(requests)} prompt={len(requests[0].prompt)} "
+                  f"first={requests[0].seq_id} last={requests[-1].seq_id}"):
+            with span("serve.admit"):
+                batch = self._admit(requests)
+            logits, cache = self.model.prefill(self.cfg, self.params, batch, self.max_len)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            steps = max(r.max_new_tokens for r in requests)
+            for step in range(steps):
+                with span("serve.read_tokens"):
+                    toks = tok[:, 0].tolist()
+                with span("serve.bookkeeping"):
+                    for i, r in enumerate(requests):
+                        if len(r.output) < r.max_new_tokens:
+                            r.output.append(toks[i])
+                            self.cache_mgr.extend(r.seq_id, len(r.prompt) + len(r.output))
+                if all(len(r.output) >= r.max_new_tokens for r in requests):
+                    break
+                logits, cache = self._decode(self.params, cache, tok)
+                tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            with span("serve.release"):
+                for r in requests:
+                    self.cache_mgr.release(r.seq_id)
+        return requests
+
+    def _admit(self, requests: list[Request]) -> dict[str, torch.Tensor]:
+        """Check each request against ``max_len``, admit it to the cache pool, and put the
+        batch's prompts (and a vlm's or encdec's stub frontend inputs) on the device."""
         if self.cfg.family != "ssm":
             for r in requests:
                 need = len(r.prompt) + r.max_new_tokens - 1
@@ -83,19 +111,4 @@ class ServeEngine:
             batch["frame_embeds"] = torch.zeros(
                 (len(requests), self.cfg.encoder_frames, self.cfg.d_model), dtype=torch.float32, device=self.device
             )
-        logits, cache = self.model.prefill(self.cfg, self.params, batch, self.max_len)
-        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-        steps = max(r.max_new_tokens for r in requests)
-        for step in range(steps):
-            toks = tok[:, 0].tolist()
-            for i, r in enumerate(requests):
-                if len(r.output) < r.max_new_tokens:
-                    r.output.append(toks[i])
-                    self.cache_mgr.extend(r.seq_id, len(r.prompt) + len(r.output))
-            if all(len(r.output) >= r.max_new_tokens for r in requests):
-                break
-            logits, cache = self._decode(self.params, cache, tok)
-            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-        for r in requests:
-            self.cache_mgr.release(r.seq_id)
-        return requests
+        return batch

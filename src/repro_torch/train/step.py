@@ -52,6 +52,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.encdec import MAX_DECODER_POS
 from repro_torch.models.layers import Attention, kv_head_map, kv_map
 from repro_torch.models.transformer import nll_sum
+from repro_torch.obs import span
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules, tp
 from repro_torch.train.compress import dequantize_int8
@@ -150,36 +151,40 @@ def make_train_fn(cfg: ArchConfig, ocfg: adamw.AdamWConfig | None = None, *, com
         return loss.detach(), dict(zip(named, grads))
 
     def train_step(params: nn.Module, opt_state: dict, batch: dict):
-        if grad_dtype != "float32":
-            dt = getattr(torch, grad_dtype)
-            cast = {n: p.detach().to(dt).requires_grad_() if p.dtype == torch.float32 else p
-                    for n, p in params.named_parameters()}
-            loss, grads = _loss_and_grad(cfg, params, m.loss_fn, cast, batch)
+        with span("train.step"):
+            if grad_dtype != "float32":
+                dt = getattr(torch, grad_dtype)
+                with span("train.loss_and_grad"):
+                    cast = {n: p.detach().to(dt).requires_grad_() if p.dtype == torch.float32 else p
+                            for n, p in params.named_parameters()}
+                    loss, grads = _loss_and_grad(cfg, params, m.loss_fn, cast, batch)
+                metrics = adamw.update(ocfg, grads, opt_state, params)
+                metrics["loss"] = loss
+                return params, opt_state, metrics
+            with span("train.loss_and_grad"):
+                if accum_steps > 1:
+                    loss = torch.zeros((), dtype=torch.float32, device=opt_state["step"].device)
+                    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                             for n, p in params.named_parameters()}
+                    for i in range(accum_steps):
+                        mb = {k: x[i * (x.shape[0] // accum_steps):(i + 1) * (x.shape[0] // accum_steps)]
+                              for k, x in batch.items()}
+                        mloss, mgrads = value_and_grad(params, mb)
+                        loss = loss + mloss
+                        for n, g in mgrads.items():
+                            grads[n] += g
+                    loss = loss / accum_steps
+                    grads = {n: g / accum_steps for n, g in grads.items()}
+                else:
+                    loss, grads = value_and_grad(params, batch)
+            if compress != "none":
+                from repro_torch.train.compress import compress_grads
+
+                with span("train.compress"):
+                    grads = _unstack_layers(compress_grads(_stack_layers(grads), method=compress), list(grads))
             metrics = adamw.update(ocfg, grads, opt_state, params)
             metrics["loss"] = loss
             return params, opt_state, metrics
-        if accum_steps > 1:
-            loss = torch.zeros((), dtype=torch.float32, device=opt_state["step"].device)
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for n, p in params.named_parameters()}
-            for i in range(accum_steps):
-                mb = {k: x[i * (x.shape[0] // accum_steps):(i + 1) * (x.shape[0] // accum_steps)]
-                      for k, x in batch.items()}
-                mloss, mgrads = value_and_grad(params, mb)
-                loss = loss + mloss
-                for n, g in mgrads.items():
-                    grads[n] += g
-            loss = loss / accum_steps
-            grads = {n: g / accum_steps for n, g in grads.items()}
-        else:
-            loss, grads = value_and_grad(params, batch)
-        if compress != "none":
-            from repro_torch.train.compress import compress_grads
-
-            grads = _unstack_layers(compress_grads(_stack_layers(grads), method=compress), list(grads))
-        metrics = adamw.update(ocfg, grads, opt_state, params)
-        metrics["loss"] = loss
-        return params, opt_state, metrics
 
     return train_step
 
