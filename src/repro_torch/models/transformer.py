@@ -32,6 +32,10 @@ residual stream after the vocab-parallel embedding, which is whole on every
 rank, and leaves it before the unembedding.  In a sharded decode the K/V
 leaves may hold the rank's shard of the sequence (``Attention.seq_split``),
 while ``pos`` stays global.
+
+``DecodeGraphs`` replays the ssm family's ``decode_step`` on the card as a
+captured CUDA graph, where ``decode_graphable`` allows it; ``ServeEngine``
+owns one.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import checkpoint
 
 from ..obs import span
@@ -267,7 +272,7 @@ def _attn_block_decode(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, k: torc
 
 
 @torch.inference_mode()
-def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
+def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=None):
     """One-token decode.  tokens: (B, 1) -> (logits (B,1,V), new cache).
 
     The input cache is left as it was: the new K/V are one copy per step,
@@ -275,12 +280,22 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
     global position; in a sharded decode each K/V leaf (the hybrid: each
     site's) may be the rank's sequence shard, which ``attention_decode`` reads
     through its attention's ``seq_split``.
+
+    ``out`` (the ssm family only) is a cache of the same structure and shapes
+    into whose tensors the new cache is written and returned: the same work
+    and the same bits as the call that allocates.  It may be the input cache
+    itself, which is then updated in place (each layer reads its slice of the
+    old state before the stacks write the new ones), as ``DecodeGraphs``
+    replays it.
     """
+    if out is not None and cfg.family != "ssm":
+        raise ValueError(f"decode_step: out= takes an ssm cache, not the {cfg.family} family's")
+    out = out or {}
     with span("model.decode_step"):
         _check(cfg, params)
         with span("model.embed"):
             x = embed(cfg, params.embedding, tokens)
-        new_cache: dict[str, Any] = {"pos": cache["pos"] + 1}
+        new_cache: dict[str, Any] = {"pos": torch.add(cache["pos"], 1, out=out.get("pos"))}
         if cfg.family != "ssm":
             pos = int(cache["pos"])
             with span("model.new_cache"):
@@ -300,7 +315,9 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor):
                     with span("model.attention", ("row", site)):
                         x = _attn_block_decode(cfg, params.shared_block, x, new_k[site], new_v[site], pos)
             with span("model.new_cache"):
-                new_cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
+                into = out.get("ssm", {})
+                new_cache["ssm"] = {"state": torch.stack(states, out=into.get("state")),
+                                    "conv": torch.stack(convs, out=into.get("conv"))}
         else:
             for i, lp in enumerate(params.layers):
                 with span("model.attention", ("row", i)):
@@ -360,3 +377,75 @@ def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
             x = rmsnorm(params.final_norm, x, cfg.norm_eps)
             logits = vocab_logits(cfg, params.embedding, x[:, -1:])
         return logits, cache
+
+
+# ------------------------------------------------------------- decode graphs
+DECODE_GRAPHS = {"captures": 0, "replays": 0}  # graphs captured and replayed by every ``DecodeGraphs``
+
+
+def decode_graphable(cfg: ArchConfig, params: nn.Module) -> bool:
+    """Whether ``DecodeGraphs`` may replay ``decode_step`` for ``params``: they sit on the card, the
+    family's cache holds no positional K/V (each other family's step reads ``int(cache["pos"])``
+    on the host, which a captured graph cannot), and no module has a ``tp_group`` (a sharded
+    decode's collectives stay eager)."""
+    return (cfg.family == "ssm" and params.embedding.embed.device.type == "cuda"
+            and all(getattr(m, "tp_group", None) is None for m in params.modules()))
+
+
+def _leaves(cache: dict) -> list[torch.Tensor]:
+    """A cache's tensors, nested dicts flattened, in the order of their sorted keys."""
+    return [t for k in sorted(cache) for t in (_leaves(cache[k]) if isinstance(cache[k], dict) else (cache[k],))]
+
+
+class DecodeGraphs:
+    """``decode_step`` captured as a CUDA graph and replayed, for params that ``decode_graphable``
+    accepts: one ``cudaGraphLaunch`` a step in place of some 60 launches a layer from Python.  The
+    replay runs the same kernels on the same data in the same order as the eager step, so its
+    logits and cache are the eager step's, bit for bit.
+
+    The runner holds one graph, for the shape (of the tokens and of each cache tensor) of its
+    latest call: a static tokens buffer and a static cache, which the graph updates in place
+    (``decode_step(..., out=cache)``), in a memory pool of the graph's own.  A call whose cache
+    is the static one replays the graph; any other cache (a prefill's) is copied into it first;
+    a call of another shape drops the graph and captures one for its shape.  What a call returns
+    is the runner's own: the next call writes over it, so read the logits before the next call
+    and pass the cache back only into the next one.  The graph and its pool go with the runner.
+    """
+
+    def __init__(self, cfg: ArchConfig, params: LM):
+        self.cfg, self.params = cfg, params
+        self._key = self._graph = self._tokens = self._cache = self._logits = None
+
+    @torch.inference_mode()
+    def __call__(self, params: LM, cache, tokens: torch.Tensor):
+        if params is not self.params:
+            raise ValueError("DecodeGraphs: the graph was captured on other params")
+        if cache is not self._cache:
+            key = tuple((t.shape, t.dtype) for t in (tokens, *_leaves(cache)))
+            if key != self._key:
+                self._capture(cache, tokens, key)
+            for dst, src in zip(_leaves(self._cache), _leaves(cache)):
+                dst.copy_(src)
+        self._tokens.copy_(tokens)
+        with span("model.decode_graph"):
+            self._graph.replay()
+        DECODE_GRAPHS["replays"] += 1
+        return self._logits, self._cache
+
+    def _capture(self, cache, tokens: torch.Tensor, key: tuple) -> None:
+        self._key = self._graph = self._tokens = self._cache = self._logits = None  # the old shape's, freed first
+        cfg, params = self.cfg, self.params
+        toks, static = tokens.clone(), tree_map(torch.zeros_like, cache)
+        graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(graph)
+        # warm up off the default stream, as torch.cuda.graphs asks, on the one the capture uses
+        # (torch's shared capture stream), so no engine leaves a cuBLAS workspace of its own behind
+        side = capture.capture_stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            decode_step(cfg, params, static, toks, out=static)
+        torch.cuda.current_stream().wait_stream(side)
+        with capture:
+            logits = decode_step(cfg, params, static, toks, out=static)[0]
+        DECODE_GRAPHS["captures"] += 1
+        self._key, self._graph, self._tokens, self._cache, self._logits = key, graph, toks, static, logits

@@ -2,7 +2,11 @@
 
 Uses the model's prefill/decode steps and the HybridCacheManager for
 placement decisions.  The engine runs on the card unless the caller passes
-``device="cpu"``; its params must already sit on that device.
+``device="cpu"``; its params must already sit on that device.  Where
+``transformer.decode_graphable`` accepts them (an ssm model on the card, not
+tensor-parallel) each decode step is a replayed CUDA graph
+(``transformer.DecodeGraphs``, the engine's own, which refuses other params);
+every other decode runs ``decode_step`` eagerly.
 """
 from __future__ import annotations
 
@@ -10,7 +14,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import get_model
+from repro_torch.models import get_model, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _device
 from repro_torch.obs import span
@@ -43,8 +47,11 @@ class ServeEngine:
             bytes_per_token=bytes_per_token, slab_tokens=min(max_len // 2, 512),
             arena_tokens=max_len * batch_size,
         ))
+        self._graphs = transformer.DecodeGraphs(cfg, params) if transformer.decode_graphable(cfg, params) else None
 
     def _decode(self, params, cache, tok):
+        if self._graphs is not None:
+            return self._graphs(params, cache, tok)
         return self.model.decode_step(self.cfg, params, cache, tok)
 
     @torch.inference_mode()

@@ -413,3 +413,109 @@ def test_kernel_functions_refuse_dtensors(cuda):
     with pytest.raises(TypeError, match="DTensor"):
         fa_ops.flash_attention(dt(q), dt(k), dt(v))
     assert (ops.LAUNCHES, fa_ops.LAUNCHES) == launches
+
+
+# ------------------------------------------------------------- decode graphs
+def _graph_engine(cuda, compute_dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(ARCHS["mamba2-780m"].reduced(), compute_dtype=compute_dtype)
+    params = transformer.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    return cfg, params, lambda: ServeEngine(cfg, params, max_len=64, batch_size=4)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_served_by_replayed_graphs_is_the_eager_decode_bit_for_bit(cuda, compute_dtype):
+    """Three batches (two of 4 requests with other prompts, then one of 2) through an engine
+    whose decode replays captured graphs: each step's logits and cache, and so every served
+    token, are those of an eager ``prefill`` + ``decode_step`` loop, bit for bit; no state
+    carries from one batch into the next through the static cache.  Each shape captures
+    one graph, and each decode call replays it."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request
+
+    cfg, params, make = _graph_engine(cuda, compute_dtype)
+    eng = make()
+    assert eng._graphs is not None
+    seen, real = [], eng._decode
+
+    def spy(p, cache, tok):
+        logits, new = real(p, cache, tok)
+        seen.append((logits.clone(), [t.clone() for t in transformer._leaves(new)]))
+        return logits, new
+
+    eng._decode = spy
+    before = dict(transformer.DECODE_GRAPHS)
+    g = torch.Generator().manual_seed(5)
+    new_tokens = 6
+    for b, s in [(4, 16), (4, 24), (2, 8)]:
+        prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+        seen.clear()
+        served = eng.run_batch([Request(i, prompts[i], max_new_tokens=new_tokens) for i in range(b)])
+        logits, cache = transformer.prefill(cfg, params, {"tokens": prompts.to(cuda)}, 64)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        want = [tok[:, 0].tolist()]
+        assert len(seen) == new_tokens - 1
+        for got_logits, got_cache in seen:
+            logits, cache = transformer.decode_step(cfg, params, cache, tok)
+            assert torch.equal(got_logits, logits)
+            assert all(torch.equal(x, y) for x, y in zip(got_cache, transformer._leaves(cache)))
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            want.append(tok[:, 0].tolist())
+        assert [r.output for r in served] == [list(t) for t in zip(*want)]
+    assert transformer.DECODE_GRAPHS["captures"] - before["captures"] == 2  # batches of 4, then of 2
+    assert transformer.DECODE_GRAPHS["replays"] - before["replays"] == 3 * (new_tokens - 1)
+
+
+def test_batches_of_changing_size_hold_one_graph(cuda):
+    """An engine that serves batches of several sizes captures a graph for each change of size
+    and holds only the latest: what it keeps on the card never grows past what the largest
+    batch left behind."""
+    import gc
+
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request
+
+    cfg, _, make = _graph_engine(cuda)
+    eng = make()
+    before = dict(transformer.DECODE_GRAPHS)
+    sizes, held = [4, 2, 3, 1, 4, 4], []
+    for b in sizes:
+        eng.run_batch([Request(i, torch.arange(8) * (i + 1) % cfg.vocab_size, max_new_tokens=4) for i in range(b)])
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    assert transformer.DECODE_GRAPHS["captures"] - before["captures"] == len(sizes) - 1
+    assert max(held) == held[0], held
+
+
+def test_deleting_the_engine_releases_its_graphs(cuda):
+    """The static cache, the graph and its pool belong to the engine: once it is gone the
+    card holds what it held before the engine's first batch."""
+    import gc
+
+    from repro_torch.serve.engine import Request
+
+    cfg, _, make = _graph_engine(cuda)
+
+    def reqs():
+        return [Request(i, torch.arange(8) * (i + 1) % cfg.vocab_size, max_new_tokens=4) for i in range(4)]
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    make().run_batch(reqs())  # the process keeps what it makes once (streams' cuBLAS workspaces)
+    base = settle()
+    eng = make()
+    eng.run_batch(reqs())
+    assert torch.cuda.memory_allocated() > base[0]
+    del eng
+    allocated, reserved = settle()
+    assert allocated == base[0] and reserved <= base[1]
