@@ -1,17 +1,21 @@
 """Architecture configuration shared by every model family.
 
 One dataclass covers the whole assigned pool (dense GQA, MoE, SSM, hybrid,
-encoder-decoder, VLM backbone).  Family-specific fields are ignored by other
-families.  ``reduced()`` derives the small smoke-test variant of the same
-family (few layers, narrow width, tiny vocab) used by per-arch CPU tests; the
-full configs are only ever lowered via ShapeDtypeStruct in the dry-run.
+encoder-decoder, VLM backbone) and the port's ``zamba2`` family, the published
+Zamba2 (arXiv:2411.15242; ``models/transformer.py``).  Family-specific fields
+are ignored by other families; the fields marked port-only have no
+counterpart in the reference's config, and their defaults leave every other
+family as the reference builds it.  ``reduced()`` derives the small
+smoke-test variant of the same family (few layers, narrow width, tiny vocab)
+used by per-arch CPU tests; the full configs are only ever lowered via
+ShapeDtypeStruct in the dry-run.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
+Family = Literal["dense", "moe", "ssm", "hybrid", "zamba2", "encdec", "vlm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +49,13 @@ class ArchConfig:
     ssm_chunk: int = 256
     # hybrid (zamba2-style shared attention block)
     attn_every: int = 0               # apply the shared attn block every k ssm layers
+    # zamba2, the published form (port-only)
+    hybrid_layer_ids: tuple[int, ...] = ()  # Mamba2 layers whose input a shared-block site adds to
+    num_mem_blocks: int = 0           # shared blocks, taken in turn by the sites
+    adapter_rank: int = 0             # each site's LoRA rank on the block's MLP input projection
+    mem_rope: bool = False            # RoPE in the shared blocks' attention
+    ssm_ngroups: int = 1              # B/C groups: head h reads group h // (heads / groups)
+    ssm_dt_min: float = 0.0           # dt floor after the softplus (0: none)
     # encoder-decoder (whisper-style)
     encoder_layers: int = 0
     encoder_frames: int = 1500        # precomputed frame embeddings (stub frontend)
@@ -60,6 +71,10 @@ class ArchConfig:
     # distribution adjustments (see sharding.rules.pad_config_for_mesh):
     orig_num_heads: int = 0           # >0 when q heads were padded for TP
     vocab_pad_multiple: int = 1       # pad vocab (embedding rows only) for TP
+
+    def __post_init__(self):
+        # a configuration file gives the sites as a list; the config is frozen and hashable
+        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
 
     # ---------------------------------------------------------------- derived
     @property
@@ -83,7 +98,7 @@ class ArchConfig:
 
     @property
     def ssm_groups(self) -> int:
-        return 1
+        return self.ssm_ngroups
 
     def has_attention(self) -> bool:
         return self.family != "ssm"
@@ -124,6 +139,14 @@ class ArchConfig:
             attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
             shared = attn + 3 * d * self.d_ff + 2 * d  # ONE shared block
             return self.num_layers * (mamba + 2 * d) + shared + emb
+        if self.family == "zamba2":  # exact: every leaf of the model
+            di, h, gn, w = self.ssm_d_inner, self.ssm_num_heads, self.ssm_groups * self.ssm_state, self.ssm_conv_width
+            mamba = d * (2 * di + 2 * gn + h) + di * d + (w + 1) * (di + 2 * gn) + 3 * h + di + d
+            attn = 2 * d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+            block = attn + 3 * d * self.d_ff + 3 * d  # norms over [x, e] (2d) and before the MLP (d)
+            site = self.adapter_rank * (d + 2 * self.d_ff) + d * d  # LoRA and the site's linear
+            return (self.num_layers * mamba + self.num_mem_blocks * block + len(self.hybrid_layer_ids) * site
+                    + emb + d)
         raise ValueError(self.family)
 
     def active_param_count(self) -> int:
@@ -138,9 +161,10 @@ class ArchConfig:
         return self.num_layers * per_layer + self.vocab_size * d * 2
 
     def reduced(self) -> "ArchConfig":
-        """Small same-family config for CPU smoke tests."""
-        return dataclasses.replace(
-            self,
+        """Small same-family config for CPU smoke tests.  A zamba2 config keeps its blocks, its
+        groups and three sites that use both blocks, over 8 layers; its heads stay MHA, each
+        of 2 * d_model / heads, as the published attention derives them."""
+        changes = dict(
             name=self.name + "-reduced",
             num_layers=min(self.num_layers, 2 if self.family != "hybrid" else 4),
             d_model=64,
@@ -164,3 +188,8 @@ class ArchConfig:
             compute_dtype="float32",
             remat=False,
         )
+        if self.family == "zamba2":
+            heads = changes["num_heads"]
+            changes.update(num_layers=min(self.num_layers, 8), hybrid_layer_ids=(1, 4, 6), num_kv_heads=heads,
+                           head_dim=2 * changes["d_model"] // heads, adapter_rank=min(self.adapter_rank, 8))
+        return dataclasses.replace(self, **changes)

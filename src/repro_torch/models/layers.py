@@ -74,6 +74,16 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * scale.to(torch.float32)).to(dt)
 
 
+def rmsnorm_grouped(params: RMSNorm, x: torch.Tensor, eps: float, groups: int) -> torch.Tensor:
+    """``rmsnorm`` over each of ``groups`` equal parts of the last dim (Mamba2's gated norm
+    with B/C groups); one group is ``rmsnorm`` itself."""
+    if groups == 1:
+        return rmsnorm(params, x, eps)
+    shape = x.shape
+    scale = params.scale.reshape(groups, -1)
+    return _rms(x.reshape(*shape[:-1], groups, -1), scale, eps).reshape(shape)
+
+
 def rmsnorm_split(params: RMSNorm, x: torch.Tensor, eps: float, g: tp.Group) -> torch.Tensor:
     """``rmsnorm`` over a dim that the model axis splits: ``x`` is this rank's part
     of it and ``params.scale`` the whole (replicated) leaf.  The sum of squares is
@@ -140,18 +150,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 # ----------------------------------------------------------------- attention
 class Attention(nn.Module):
+    """q, k, v and o.  Its input is ``d_in`` wide (the model's width unless given: a zamba2
+    shared block attends over the stream and the embedding side by side, 2 x d_model)."""
+
     tp_group: tp.Group | None = None
     seq_split: tp.SeqSplit | None = None  # a sharded decode's cache shard (``attention_decode``)
 
-    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device, d_in: int | None = None):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
+        d_in = d_in or d
         h, k = cfg.num_heads, cfg.num_kv_heads
         dt = _dtype(cfg.param_dtype)
         scale = d**-0.5
-        self.wq = _normal((d, h, hd), scale, dt, generator, device)
-        self.wk = _normal((d, k, hd), scale, dt, generator, device)
-        self.wv = _normal((d, k, hd), scale, dt, generator, device)
+        self.wq = _normal((d_in, h, hd), d_in**-0.5, dt, generator, device)
+        self.wk = _normal((d_in, k, hd), d_in**-0.5, dt, generator, device)
+        self.wv = _normal((d_in, k, hd), d_in**-0.5, dt, generator, device)
         self.wo = _normal((h, hd, d), scale, dt, generator, device)
         if cfg.orig_num_heads and cfg.orig_num_heads < h:
             # TP head padding: padded q heads are exact zeros (contribute nothing)
@@ -258,6 +272,12 @@ def kv_map(cfg: ArchConfig, g: tp.Group | None) -> torch.Tensor:
     return kv_heads_read(cfg, g)[0]
 
 
+def softmax_scale(cfg: ArchConfig, head_dim: int) -> float:
+    """The scores' scale: head_dim^-0.5, and (head_dim / 2)^-0.5 in zamba2's shared blocks, as the
+    published attention sets it (its heads are twice as wide as the stream's share)."""
+    return (head_dim / 2) ** -0.5 if cfg.family == "zamba2" else head_dim**-0.5
+
+
 def _sdpa(cfg: ArchConfig, q, k, v, kvm: torch.Tensor, *, causal: bool, q_offset: int = 0, window: int = 0):
     """Grouped-query scaled dot-product attention (the plain path).
 
@@ -270,7 +290,7 @@ def _sdpa(cfg: ArchConfig, q, k, v, kvm: torch.Tensor, *, causal: bool, q_offset
     kr = k[:, :, kvm, :]  # (B,Skv,H,D)
     vr = v[:, :, kvm, :]
     logits = torch.einsum("bqhd,bshd->bhqs", q, kr).to(torch.float32)
-    logits = logits * d**-0.5
+    logits = logits * softmax_scale(cfg, d)
     qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -303,6 +323,9 @@ def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.T
     if cfg.attention_impl == "flash" and causal:
         from ..kernels.flash_attention import ops as fa_ops
 
+        if cfg.family == "zamba2":
+            raise ValueError("attention_impl='flash' scales scores by head_dim^-0.5; zamba2's shared blocks "
+                             "take (head_dim / 2)^-0.5: use attention_impl='xla'")
         _check_flash_heads(cfg, kv_map(cfg, p.tp_group), k.shape[2])
         out = fa_ops.flash_attention(q, k, v, window=cfg.sliding_window)
     else:
@@ -361,7 +384,7 @@ def _attend_cache(cfg: ArchConfig, p: Attention, q: torch.Tensor, k: torch.Tenso
         _, lo, kl = kv_heads_read(cfg, g)
         k, v = k[:, :, lo:lo + kl], v[:, :, lo:lo + kl]
     logits = torch.einsum("bqhd,bshd->bhqs", q, k.to(cd)[:, :, kvm, :]).to(torch.float32)
-    logits = logits * d**-0.5
+    logits = logits * softmax_scale(cfg, d)
     logits = torch.where(valid[None, None], logits, -1e30)
     if split is None:
         probs = torch.softmax(logits, dim=-1).to(cd)

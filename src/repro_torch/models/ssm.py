@@ -2,7 +2,11 @@
 
 Follows the Mamba2 formulation (arXiv:2405.21060): input projections to
 (z, x, B, C, dt), short depthwise conv on (x, B, C), SSD chunked scan with
-scalar-per-head decay A, gated RMSNorm, output projection.
+scalar-per-head decay A, gated RMSNorm, output projection.  B and C come in
+``cfg.ssm_groups`` groups of ``ssm_state`` columns: head h reads group
+h // (heads / groups), and the gated norm works on each group's channels
+(zamba2's two groups; every other family has one).  ``cfg.ssm_dt_min`` floors
+dt after its softplus, as the published Zamba2 Mixer does.
 
 Parameters keep the reference's names and layouts: the projections are
 separate (wz/wx/wb/wc/wdt, each (d_model, out) and applied as ``x @ w``), the
@@ -32,7 +36,7 @@ from torch import nn
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..sharding import tp
 from .config import ArchConfig
-from .layers import _dtype, _normal, _param, rmsnorm, rmsnorm_init, rmsnorm_split
+from .layers import _dtype, _normal, _param, rmsnorm_grouped, rmsnorm_init, rmsnorm_split
 
 
 def _causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -111,10 +115,14 @@ class Mamba2Mixer(nn.Module):
     def _gate_out(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         g = self.tp_group
         if g is None:
-            y = rmsnorm(self.norm, y * F.silu(z), self.cfg.norm_eps)
+            y = rmsnorm_grouped(self.norm, y * F.silu(z), self.cfg.norm_eps, self.cfg.ssm_groups)
         else:
             y = rmsnorm_split(self.norm, y * F.silu(z), self.cfg.norm_eps, g)
         return tp.reduce(y @ self.out_proj.to(y.dtype), g)
+
+    def _dt(self, dt_raw: torch.Tensor) -> torch.Tensor:
+        dt = F.softplus(dt_raw.to(torch.float32) + self.dt_bias.to(torch.float32))
+        return dt.clamp(min=self.cfg.ssm_dt_min) if self.cfg.ssm_dt_min else dt
 
     def forward(self, xin: torch.Tensor, return_state: bool = False):
         """Full-sequence SSD.  xin: (B,S,D) -> out (B,S,D).
@@ -138,7 +146,7 @@ class Mamba2Mixer(nn.Module):
         x = x.reshape(b, s, h, pdim)
         bmat = bmat.reshape(b, s, g, n)
         cmat = cmat.reshape(b, s, g, n)
-        dt = F.softplus(dt_raw.to(torch.float32) + self.dt_bias.to(torch.float32))
+        dt = self._dt(dt_raw)
         a = -torch.exp(self.a_log.to(torch.float32))
 
         y, state = ssd_ops.ssd_scan(x, dt, a, bmat, cmat, chunk=cfg.ssm_chunk)
@@ -146,8 +154,8 @@ class Mamba2Mixer(nn.Module):
         out = self._gate_out(y.reshape(b, s, di), z)
         if return_state:
             w = cfg.ssm_conv_width - 1
-            if self.tp_group is None:
-                tail = torch.cat([x_raw, b_raw, c_raw], dim=-1)[:, -w:, :]
+            if self.tp_group is None:  # cut before the cat: a view of the whole cat would hold it alive
+                tail = torch.cat([x_raw[:, -w:], b_raw[:, -w:], c_raw[:, -w:]], dim=-1)
             else:
                 tail = torch.cat([tp.gather(x_raw[:, -w:], -1, self.tp_group), b_raw[:, -w:], c_raw[:, -w:]], dim=-1)
             if s < w:
@@ -180,7 +188,7 @@ class Mamba2Mixer(nn.Module):
         x = conv_out[:, :di].reshape(b, h, pdim)
         bvec = conv_out[:, di : di + g * n].reshape(b, g, n)
         cvec = conv_out[:, di + g * n :].reshape(b, g, n)
-        dt = F.softplus(dt_raw[:, 0].to(torch.float32) + self.dt_bias.to(torch.float32))  # (B,H)
+        dt = self._dt(dt_raw[:, 0])  # (B,H)
         a = -torch.exp(self.a_log.to(torch.float32))
 
         decay = torch.exp(a[None] * dt)  # (B,H)

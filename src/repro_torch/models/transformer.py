@@ -1,4 +1,4 @@
-"""Decoder-only LM composition for the dense / MoE / SSM / hybrid / VLM families.
+"""Decoder-only LM composition for the dense / MoE / SSM / hybrid / zamba2 / VLM families.
 
 ``init_params`` returns an ``nn.Module`` (``LM``) whose layers sit in an
 ``nn.ModuleList``; the functions take it where the reference takes its param
@@ -12,11 +12,24 @@ backward keeps each layer's input and recomputes the rest.  The
 hybrid (zamba2-style) family runs Mamba2 layers and applies ONE
 weight-shared attention block (``shared_block``) after every
 ``attn_every``-th layer; each application site has its own K/V cache (weights
-shared, caches not).  The cache keeps the reference's stacked layouts:
+shared, caches not).
+
+The zamba2 family is the published Zamba2 (arXiv:2411.15242; transformers'
+``modeling_zamba2.py``), which the port alone holds.  Its Mamba2 layer i
+computes ``x + mamba(rmsnorm(x + t_i))``, where t_i is zero except at the
+sites ``cfg.hybrid_layer_ids``: site j runs shared block j mod
+``num_mem_blocks`` on ``rmsnorm(concat(x, e))`` (e the token embedding,
+carried to every site): attention over the 2 x d_model input (RoPE where
+``mem_rope``, scores scaled by (head_dim / 2)^-0.5), ``rmsnorm``, then a
+GELU-gated MLP whose input projection adds the site's own LoRA; the site's own
+linear then maps the block's output to t_j.  The block has no residual of its
+own.  Both hybrid families walk one Mamba2 layer loop (``_site`` says where a
+site is); each site has its own K/V row.  The cache keeps the reference's
+stacked layouts:
 
 - ssm: ``ssm.state`` (layers, B, H, P, N) float32, ``ssm.conv``
   (layers, B, conv_width-1, conv_dim) in the cache dtype, ``pos``;
-- hybrid: the ssm leaves, and ``k`` and ``v`` (sites, B, max_len, K, hd);
+- hybrid and zamba2: the ssm leaves, and ``k`` and ``v`` (sites, B, max_len, K, hd);
 - dense, moe and vlm: ``k`` and ``v`` (layers, B, max_len, K, hd), ``pos``.
 
 With ``attention_impl="flash"`` the full-sequence attention of ``forward``
@@ -44,6 +57,7 @@ import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import checkpoint
@@ -52,8 +66,10 @@ from ..obs import span
 from .config import ArchConfig
 from ..sharding import tp
 from .layers import (
+    Attention,
     _device,
     _dtype,
+    _normal,
     attention,
     attention_decode,
     attention_init,
@@ -105,9 +121,37 @@ class DenseLayer(nn.Module):
             self.mlp = mlp_init(cfg.d_model, cfg.d_ff, dt, generator, device)
 
 
+class SharedBlock(nn.Module):
+    """One of zamba2's shared blocks: the norm over [x, e] (2 x d_model), attention from it,
+    the norm before the MLP, and the GELU-gated MLP's input (gate and up side by side) and
+    output projections."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        dt, d, ff = _dtype(cfg.param_dtype), cfg.d_model, cfg.d_ff
+        self.ln1 = rmsnorm_init(2 * d, dt, device)
+        self.attn = Attention(cfg, generator, device, d_in=2 * d)
+        self.ln2 = rmsnorm_init(d, dt, device)
+        self.gate_up = _normal((d, 2 * ff), d**-0.5, dt, generator, device)
+        self.down = _normal((ff, d), ff**-0.5, dt, generator, device)
+
+
+class Site(nn.Module):
+    """A zamba2 site's own weights: the LoRA on its block's MLP input projection, and the linear
+    that maps the block's output into the stream."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        dt, d, r = _dtype(cfg.param_dtype), cfg.d_model, cfg.adapter_rank
+        self.lora_a = _normal((d, r), d**-0.5, dt, generator, device)
+        self.lora_b = _normal((r, 2 * cfg.d_ff), r**-0.5, dt, generator, device)
+        self.linear = _normal((d, d), d**-0.5, dt, generator, device)
+
+
 _LAYER = {
     "ssm": Mamba2Layer,
     "hybrid": Mamba2Layer,
+    "zamba2": Mamba2Layer,
     "dense": DenseLayer,
     "vlm": DenseLayer,
     "moe": functools.partial(DenseLayer, moe=True),
@@ -126,6 +170,9 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(layer(cfg, generator, device) for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
             self.shared_block = DenseLayer(cfg, generator, device)
+        if cfg.family == "zamba2":
+            self.blocks = nn.ModuleList(SharedBlock(cfg, generator, device) for _ in range(cfg.num_mem_blocks))
+            self.sites = nn.ModuleList(Site(cfg, generator, device) for _ in cfg.hybrid_layer_ids)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None, device=None) -> LM:
@@ -160,9 +207,44 @@ def _dense_body(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, positions: tor
         return _ffn(cfg, lp, x)
 
 
-def _shared_site(cfg: ArchConfig, i: int) -> bool:
-    """Whether the hybrid's shared block follows Mamba2 layer ``i``; its site is (i+1)//attn_every - 1."""
-    return cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0
+def _site(cfg: ArchConfig, i: int) -> int | None:
+    """The shared-block site at Mamba2 layer ``i``, or None: the hybrid's follows layer i when
+    (i + 1) % attn_every == 0 (site (i + 1) // attn_every - 1); zamba2's adds to the input of
+    each layer in ``hybrid_layer_ids`` (site: its index there)."""
+    if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+        return (i + 1) // cfg.attn_every - 1
+    if cfg.family == "zamba2" and i in cfg.hybrid_layer_ids:
+        return cfg.hybrid_layer_ids.index(i)
+    return None
+
+
+def kv_rows(cfg: ArchConfig) -> int:
+    """Rows of the K/V cache: one per attention layer, per site in the hybrid families, none for ssm."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    if cfg.family == "zamba2":
+        return len(cfg.hybrid_layer_ids)
+    return cfg.num_layers
+
+
+def _shared_block(cfg: ArchConfig, params: LM, j: int, x: torch.Tensor, e: torch.Tensor, attend) -> torch.Tensor:
+    """What zamba2's site ``j`` adds to its layer's input: block j mod ``num_mem_blocks`` on
+    [x, e], its MLP's input projection with the site's LoRA, then the site's linear.
+    ``attend(attn, u)`` is the block's attention as the caller runs it: over the whole
+    sequence, a prefill that writes the site's K/V row, or a decode step that reads it."""
+    k = j % cfg.num_mem_blocks
+    blk, site = params.blocks[k], params.sites[j]
+    cd = _dtype(cfg.compute_dtype)
+    with span("model.shared_block", ("site", j, "block", k, "layer", cfg.hybrid_layer_ids[j])):
+        u = rmsnorm(blk.ln1, torch.cat([x, e], dim=-1), cfg.norm_eps)
+        with span("model.attention", ("row", j)):
+            h = attend(blk.attn, u)
+        h = rmsnorm(blk.ln2, h, cfg.norm_eps).to(cd)
+        gu = h @ blk.gate_up.to(cd) + (h @ site.lora_a.to(cd)) @ site.lora_b.to(cd)
+        gate, up = gu.chunk(2, dim=-1)
+        return ((F.gelu(gate) * up) @ blk.down.to(cd)) @ site.linear.to(cd)
 
 
 def remat(cfg: ArchConfig, body, *args):
@@ -173,13 +255,20 @@ def remat(cfg: ArchConfig, body, *args):
     return body(*args)
 
 
-def _mamba2_body(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _mamba2_body(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, positions: torch.Tensor,
+                 e: torch.Tensor | None) -> torch.Tensor:
     """The reference's scan body for the ssm and hybrid families: Mamba2 layer ``i``
-    and, at a shared site, the shared block."""
+    and, at a shared site, the shared block; zamba2's site comes first and adds to the
+    layer's input (``e``: the token embeddings)."""
     lp = params.layers[i]
+    j = _site(cfg, i)
+    xin = x
+    if cfg.family == "zamba2" and j is not None:
+        rope = positions if cfg.mem_rope else None
+        xin = x + _shared_block(cfg, params, j, x, e, lambda p, u: attention(cfg, p, u, rope))
     with span("model.mamba2", ("layer", i)):
-        x = x + lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps))
-    if _shared_site(cfg, i):
+        x = x + lp.ssm(rmsnorm(lp.norm, xin, cfg.norm_eps))
+    if cfg.family == "hybrid" and j is not None:
         x, _ = _dense_body(cfg, params.shared_block, x, positions)
     return x
 
@@ -201,9 +290,10 @@ def forward(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> tuple[torch.T
     _check(cfg, params)
     x = _embed_inputs(cfg, params, batch)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "zamba2"):
+        e = x if cfg.family == "zamba2" else None
         for i in range(len(params.layers)):
-            x = remat(cfg, _mamba2_body, cfg, params, i, x, positions)
+            x = remat(cfg, _mamba2_body, cfg, params, i, x, positions, e)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         auxs = []
@@ -244,11 +334,10 @@ def loss_fn(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.Tensor:
 
 # -------------------------------------------------------------------- cache
 def _kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict[str, torch.Tensor]:
-    """Zero K/V, one row per attention layer (the hybrid: per shared-block site); none for ssm."""
+    """Zero K/V, ``kv_rows`` rows (one per attention layer, per shared-block site in the hybrids); none for ssm."""
     if cfg.family == "ssm":
         return {}
-    rows = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
-    shape = (rows, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (kv_rows(cfg), batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
@@ -256,7 +345,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
     """Zero cache; ``max_len`` is unused by the ssm family; ``device`` None means the card."""
     dev = _device(device)
     cache: dict[str, Any] = _kv_cache(cfg, batch, max_len, dtype, dev)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "zamba2"):
         caches = ssm_init_cache(cfg, batch, dtype, dev)
         cache["ssm"] = {k: v.expand(cfg.num_layers, *v.shape).clone() for k, v in caches.items()}
     cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
@@ -295,25 +384,31 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
         _check(cfg, params)
         with span("model.embed"):
             x = embed(cfg, params.embedding, tokens)
+        e = x
         new_cache: dict[str, Any] = {"pos": torch.add(cache["pos"], 1, out=out.get("pos"))}
         if cfg.family != "ssm":
             pos = int(cache["pos"])
             with span("model.new_cache"):
                 new_k, new_v = cache["k"].clone(), cache["v"].clone()
             new_cache["k"], new_cache["v"] = new_k, new_v
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid", "zamba2"):
             states, convs = [], []
             for i, lp in enumerate(params.layers):
+                j = _site(cfg, i)
+                xin = x
+                if cfg.family == "zamba2" and j is not None:
+                    def attend(p, u, j=j):
+                        return attention_decode(cfg, p, u, {"k": new_k[j], "v": new_v[j]}, pos, rope=cfg.mem_rope)[0]
+                    xin = x + _shared_block(cfg, params, j, x, e, attend)
                 with span("model.mamba2", ("layer", i)):
                     sc = {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}
-                    h, new_sc = lp.ssm.decode(rmsnorm(lp.norm, x, cfg.norm_eps), sc)
+                    h, new_sc = lp.ssm.decode(rmsnorm(lp.norm, xin, cfg.norm_eps), sc)
                     x = x + h
                     states.append(new_sc["state"])
                     convs.append(new_sc["conv"])
-                if _shared_site(cfg, i):
-                    site = (i + 1) // cfg.attn_every - 1
-                    with span("model.attention", ("row", site)):
-                        x = _attn_block_decode(cfg, params.shared_block, x, new_k[site], new_v[site], pos)
+                if cfg.family == "hybrid" and j is not None:
+                    with span("model.attention", ("row", j)):
+                        x = _attn_block_decode(cfg, params.shared_block, x, new_k[j], new_v[j], pos)
             with span("model.new_cache"):
                 into = out.get("ssm", {})
                 new_cache["ssm"] = {"state": torch.stack(states, out=into.get("state")),
@@ -331,7 +426,7 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
 def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
     """Process a full prompt, returning (last-position logits, primed cache).
 
-    For the ssm and hybrid families the cache holds each Mamba2 layer's final
+    For the ssm and both hybrid families the cache holds each Mamba2 layer's final
     recurrent state and the pre-conv tail that decode's conv continues from;
     for every family with attention it holds each layer's (the hybrid: each
     site's) K/V, zero past the prompt.  Attention here is the plain path
@@ -348,25 +443,37 @@ def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
         positions = _positions(b, s, x.device)
         cache: dict[str, Any] = _kv_cache(cfg, b, max_len, cd, x.device)
 
+        def write_kv(row: int, k: torch.Tensor, v: torch.Tensor) -> None:
+            with span("model.new_cache"):
+                cache["k"][row, :, :s] = k.to(cache["k"].dtype)
+                cache["v"][row, :, :s] = v.to(cache["v"].dtype)
+
         def attn_block(lp: DenseLayer, x: torch.Tensor, row: int) -> torch.Tensor:
             with span("model.attention", ("row", row)):
                 h, k, v = attention_prefill(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
                 x, _ = _ffn(cfg, lp, x + h)
-                with span("model.new_cache"):
-                    cache["k"][row, :, :s] = k.to(cache["k"].dtype)
-                    cache["v"][row, :, :s] = v.to(cache["v"].dtype)
+                write_kv(row, k, v)
                 return x
 
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid", "zamba2"):
+            e = x
             states, convs = [], []
             for i, lp in enumerate(params.layers):
+                j = _site(cfg, i)
+                xin = x
+                if cfg.family == "zamba2" and j is not None:
+                    def attend(p, u, j=j):
+                        h, k, v = attention_prefill(cfg, p, u, positions if cfg.mem_rope else None)
+                        write_kv(j, k, v)
+                        return h
+                    xin = x + _shared_block(cfg, params, j, x, e, attend)
                 with span("model.mamba2", ("layer", i)):
-                    h, state, conv_tail = lp.ssm(rmsnorm(lp.norm, x, cfg.norm_eps), return_state=True)
+                    h, state, conv_tail = lp.ssm(rmsnorm(lp.norm, xin, cfg.norm_eps), return_state=True)
                     x = x + h
                     states.append(state.to(torch.float32))
                     convs.append(conv_tail.to(cd))
-                if _shared_site(cfg, i):
-                    x = attn_block(params.shared_block, x, (i + 1) // cfg.attn_every - 1)
+                if cfg.family == "hybrid" and j is not None:
+                    x = attn_block(params.shared_block, x, j)
             with span("model.new_cache"):
                 cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
         else:

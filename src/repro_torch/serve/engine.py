@@ -1,7 +1,8 @@
 """Minimal batched serving engine: admit -> prefill -> decode loop.
 
 Uses the model's prefill/decode steps and the HybridCacheManager for
-placement decisions.  The engine runs on the card unless the caller passes
+placement decisions (a token's bytes there are its K and V over the cache's
+rows).  The engine runs on the card unless the caller passes
 ``device="cpu"``; its params must already sit on that device.  Where
 ``transformer.decode_graphable`` accepts them (an ssm model on the card, not
 tensor-parallel) each decode step is a replayed CUDA graph
@@ -40,9 +41,9 @@ class ServeEngine:
         self.params = params
         self.max_len = max_len
         self.batch_size = batch_size
-        bytes_per_token = (
-            2 * max(cfg.num_kv_heads, 1) * cfg.resolved_head_dim * 2 * cfg.num_layers
-        )
+        # K and V of a token in bf16 over the cache's rows: zamba2's are its sites (``transformer.kv_rows``)
+        rows = transformer.kv_rows(cfg) if cfg.family == "zamba2" else cfg.num_layers
+        bytes_per_token = 2 * max(cfg.num_kv_heads, 1) * cfg.resolved_head_dim * 2 * rows
         self.cache_mgr = HybridCacheManager(CacheConfig(
             bytes_per_token=bytes_per_token, slab_tokens=min(max_len // 2, 512),
             arena_tokens=max_len * batch_size,

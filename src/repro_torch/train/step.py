@@ -132,15 +132,23 @@ def _unstack_layers(stacked: dict[str, torch.Tensor], names) -> dict[str, torch.
     return out
 
 
+def _refuse_zamba2(cfg: ArchConfig, what: str) -> None:
+    """The zamba2 family is served on one card: its training and sharded steps are not built."""
+    if cfg.family == "zamba2":
+        raise NotImplementedError(f"{what}: the zamba2 family runs unsharded through prefill, decode_step "
+                                  "and forward only; its training and tensor-parallel steps are not built")
+
+
 def make_train_fn(cfg: ArchConfig, ocfg: adamw.AdamWConfig | None = None, *, compress: str = "none",
                   accum_steps: int = 1, grad_dtype: str = "float32"):
-    """The train-step function.
+    """The train-step function (not for the zamba2 family, ``_refuse_zamba2``).
 
     ``grad_dtype='bfloat16'`` differentiates w.r.t. a bf16 copy of the params
     (mixed precision): gradients — and therefore the data-parallel reduction
     on the wire — are bf16, halving the gradient collective.  The fp32 master
     weights still receive the update (adamw casts grads to fp32 internally).
     """
+    _refuse_zamba2(cfg, "make_train_fn")
     ocfg = ocfg or adamw.AdamWConfig()
     m = get_model(cfg)
 
@@ -439,6 +447,7 @@ def make_train_step(cfg: ArchConfig, mesh, ocfg: adamw.AdamWConfig | None = None
     A ``grad_dtype`` other than float32 neither accumulates nor compresses, as
     in the reference's ``make_train_fn``.
     """
+    _refuse_zamba2(cfg, "make_train_step")
     ocfg = ocfg or adamw.AdamWConfig()
     if grad_dtype != "float32":
         compress, accum_steps = "none", 1
@@ -547,6 +556,7 @@ def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, *, layout: str = "bas
     heads, and K/V (and whisper's cross K/V) are gathered over the heads, then
     cut into the sequence shards the specs give (a vlm's sequence holds its
     patch prefix too)."""
+    _refuse_zamba2(cfg, "make_prefill_step")
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
     group = model_group(cfg, mesh, layout)
@@ -582,6 +592,7 @@ def make_decode_step(cfg: ArchConfig, mesh, *, layout: str = "baseline"):
     and its heads of the SSM state.  It returns the next tokens as a DTensor
     split like the tokens' rows, and the new cache in ``rules.cache_specs``'
     placements."""
+    _refuse_zamba2(cfg, "make_decode_step")
     params_shape = abstract_params(cfg)
     pspecs = rules.param_shardings(cfg, mesh, params_shape, layout)
     group = model_group(cfg, mesh, layout)

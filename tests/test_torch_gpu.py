@@ -58,6 +58,7 @@ def _check(out, ref, dtype):
     [
         (4, 1024, 48, 64, 1, 128, 256),  # mamba2-780m serving shape
         (4, 1024, 80, 64, 1, 64, 256),  # zamba2-2.7b's Mamba2 layers at 4 x 1024 tokens
+        (2, 1024, 112, 64, 2, 64, 256),  # zamba2-7b-instruct's: 112 heads over two B/C groups
         (2, 64, 4, 16, 1, 16, 16),
         (1, 128, 4, 32, 2, 32, 32),
         (2, 256, 8, 64, 1, 64, 64),
@@ -519,3 +520,42 @@ def test_deleting_the_engine_releases_its_graphs(cuda):
     del eng
     allocated, reserved = settle()
     assert allocated == base[0] and reserved <= base[1]
+
+
+# ------------------------------------------------------------------- zamba2
+def test_zamba2_site_at_published_widths_matches_reference(cuda):
+    """One site of the published Zamba2-7B-Instruct at its widths (2 Mamba2 layers, the site at
+    layer 1, the whole vocabulary) in bf16 on the card: prefill over a ragged second chunk, then
+    4 decode steps through the cache, against the float32 reference over the same weights.
+
+    bf16 rounds each product's operands to 8 bits (2^-9 relative); through two layers and a
+    site the logits, whose spread is ~1.2 (a unit-norm state against the 0.02-scale tied
+    embedding), move by a few hundredths.  A wrong site, group, scale or rotation moves them by
+    tenths: the bars are 0.15 at the worst logit and 0.03 on average."""
+    import json
+    from pathlib import Path
+
+    from bench.harness import program
+    from bench.reference import zamba2_lm as ref
+    from repro_torch.models import get_model
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "bench" / "configs" / "zamba2-7b-instruct.json").read_text())
+    arch = dict(conf["arch"], num_layers=2, hybrid_layer_ids=[1], num_mem_blocks=1)
+    cfg = program.arch_config(arch)
+    model = program.build(cfg, ref, arch, 11, cuda)
+    toks = torch.randint(0, arch["vocab_size"], (2, 300 + 4), generator=torch.Generator().manual_seed(3)).to(cuda)
+    m = get_model(cfg)
+    logits, cache = m.prefill(cfg, model, {"tokens": toks[:, :300]}, max_len=320)
+    got = [logits[:, 0]]
+    for t in range(300, 303):
+        logits, cache = m.decode_step(cfg, model, cache, toks[:, t:t + 1])
+        got.append(logits[:, 0])
+    got = torch.stack(got, dim=1).float()
+    del model, cache
+    torch.cuda.empty_cache()
+    w = program.reference_weights(ref, arch, 11, cuda)
+    want = ref.next_token_logits(arch, w, toks[:, :303], 299)
+    diff = (got - want).abs()
+    print(f"zamba2 site bf16 vs f32: max {float(diff.max()):.5f} mean {float(diff.mean()):.6f} "
+          f"logit std {float(want.std()):.4f}")
+    assert float(diff.max()) <= 0.15 and float(diff.mean()) <= 0.03

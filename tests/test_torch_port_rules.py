@@ -134,10 +134,22 @@ def test_no_jax_or_repro_import_in_port(path):
 
 
 def test_archs_equal_reference():
+    """The ten entries equal the reference's over the reference's fields; the port's own fields
+    (the zamba2 family's) hold their defaults in each entry and its reduced config."""
     assert sorted(ARCHS) == sorted(JAX_ARCHS) and len(ARCHS) == 10
+    shared = [f.name for f in dataclasses.fields(JAX_ARCHS["mamba2-780m"])]
+    own = [f for f in dataclasses.fields(ARCHS["mamba2-780m"]) if f.name not in shared]
+    assert sorted(f.name for f in own) == sorted(
+        ["hybrid_layer_ids", "num_mem_blocks", "adapter_rank", "mem_rope", "ssm_ngroups", "ssm_dt_min"])
+
+    def over_reference(cfg):
+        return {k: getattr(cfg, k) for k in shared}
+
     for name, cfg in ARCHS.items():
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(JAX_ARCHS[name])
-        assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(JAX_ARCHS[name].reduced())
+        assert over_reference(cfg) == dataclasses.asdict(JAX_ARCHS[name])
+        assert over_reference(cfg.reduced()) == dataclasses.asdict(JAX_ARCHS[name].reduced())
+        for c in (cfg, cfg.reduced()):
+            assert all(getattr(c, f.name) == f.default for f in own), name
         assert cfg.param_count() == JAX_ARCHS[name].param_count()
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()
