@@ -400,7 +400,7 @@ def _attend_cache(cfg: ArchConfig, p: Attention, q: torch.Tensor, k: torch.Tenso
 
 
 def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor],
-                     pos: int, *, rope: bool = True) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                     pos: int | torch.Tensor, *, rope: bool = True) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One-token decode against a KV cache (``_attend_cache``), rotated at ``pos``
     unless ``rope`` is off (whisper's decoder has none).
 
@@ -410,17 +410,35 @@ def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict
     ``p.seq_split`` the cache holds global positions ``offset`` to
     ``offset + Smax``, masked by those, and only the rank whose shard holds
     ``pos`` writes the new row.
+
+    ``pos`` is an int or the cache's 0-d int32 tensor on ``x``'s device.  A tensor is
+    never read back to the host: the row goes in by ``index_copy_`` and the masks
+    compare on the device, the same values as from an int, so that the step can be
+    captured as a CUDA graph.  It must lie inside the cache, and a sequence-split
+    cache refuses it (its rank's shard decides on the host who writes the row).
     """
     cd = _dtype(cfg.compute_dtype)
     g, split = p.tp_group, p.seq_split
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device) if rope else None
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device and split is not None:
+        raise ValueError("attention_decode: a sequence-split cache takes pos as an int, not a tensor")
+    if not rope:
+        positions = None
+    elif on_device:
+        positions = pos.view(1, 1).expand(x.shape[0], 1)
+    else:
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(cfg, p, x.to(cd), positions, whole_kv=True)
     if g is not None and cfg.num_kv_heads % g.size == 0:
         k_new, v_new = tp.gather(k_new, 2, g), tp.gather(v_new, 2, g)
     k_cache, v_cache = cache["k"], cache["v"]
     smax = k_cache.shape[1]
     offset = 0 if split is None else split.offset
-    if offset <= pos < offset + smax:
+    if on_device:
+        row = pos.view(1).long()
+        k_cache.index_copy_(1, row, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(1, row, v_new.to(v_cache.dtype))
+    elif offset <= pos < offset + smax:
         k_cache[:, pos - offset] = k_new[:, 0].to(k_cache.dtype)
         v_cache[:, pos - offset] = v_new[:, 0].to(v_cache.dtype)
     kpos = torch.arange(smax, device=x.device)[None, :] + offset

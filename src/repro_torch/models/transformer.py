@@ -46,9 +46,9 @@ rank, and leaves it before the unembedding.  In a sharded decode the K/V
 leaves may hold the rank's shard of the sequence (``Attention.seq_split``),
 while ``pos`` stays global.
 
-``DecodeGraphs`` replays the ssm family's ``decode_step`` on the card as a
-captured CUDA graph, where ``decode_graphable`` allows it; ``ServeEngine``
-owns one.
+``DecodeGraphs`` replays the ssm and hybrid families' ``decode_step`` on the
+card as a captured CUDA graph, where ``decode_graphable`` allows it;
+``ServeEngine`` owns one.
 """
 from __future__ import annotations
 
@@ -147,6 +147,8 @@ class Site(nn.Module):
         self.lora_b = _normal((r, 2 * cfg.d_ff), r**-0.5, dt, generator, device)
         self.linear = _normal((d, d), d**-0.5, dt, generator, device)
 
+
+_MAMBA2_LOOP = ("ssm", "hybrid", "zamba2")  # the families that walk a loop of Mamba2 layers
 
 _LAYER = {
     "ssm": Mamba2Layer,
@@ -290,7 +292,7 @@ def forward(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> tuple[torch.T
     _check(cfg, params)
     x = _embed_inputs(cfg, params, batch)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    if cfg.family in ("ssm", "hybrid", "zamba2"):
+    if cfg.family in _MAMBA2_LOOP:
         e = x if cfg.family == "zamba2" else None
         for i in range(len(params.layers)):
             x = remat(cfg, _mamba2_body, cfg, params, i, x, positions, e)
@@ -345,7 +347,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
     """Zero cache; ``max_len`` is unused by the ssm family; ``device`` None means the card."""
     dev = _device(device)
     cache: dict[str, Any] = _kv_cache(cfg, batch, max_len, dtype, dev)
-    if cfg.family in ("ssm", "hybrid", "zamba2"):
+    if cfg.family in _MAMBA2_LOOP:
         caches = ssm_init_cache(cfg, batch, dtype, dev)
         cache["ssm"] = {k: v.expand(cfg.num_layers, *v.shape).clone() for k, v in caches.items()}
     cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
@@ -354,10 +356,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
 
 # ------------------------------------------------------------------- decode
 def _attn_block_decode(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       pos: int) -> torch.Tensor:
+                       pos: int | torch.Tensor) -> torch.Tensor:
     """One token through an attention block; writes its K/V row into ``k``/``v`` in place."""
     h, _ = attention_decode(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), {"k": k, "v": v}, pos)
     return _ffn(cfg, lp, x + h)[0]
+
+
+def _pos_on_device(cfg: ArchConfig, params: LM) -> bool:
+    """Whether ``decode_step`` hands attention ``pos`` as the cache's device tensor: in the
+    hybrid families, unless a sharded decode splits the K/V's sequence (``seq_split``, which
+    takes an int); dense, moe and vlm read it on the host."""
+    if cfg.family == "zamba2":
+        return True
+    return cfg.family == "hybrid" and params.shared_block.attn.seq_split is None
 
 
 @torch.inference_mode()
@@ -368,30 +379,40 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
     into which each attention block writes its row in place.  ``pos`` is the
     global position; in a sharded decode each K/V leaf (the hybrid: each
     site's) may be the rank's sequence shard, which ``attention_decode`` reads
-    through its attention's ``seq_split``.
+    through its attention's ``seq_split``.  The hybrid families pass ``pos`` to
+    attention as the cache's device tensor (``_pos_on_device``), so that their
+    step, as the ssm's, reads nothing back to the host; the other families read
+    it as an int.
 
-    ``out`` (the ssm family only) is a cache of the same structure and shapes
-    into whose tensors the new cache is written and returned: the same work
-    and the same bits as the call that allocates.  It may be the input cache
-    itself, which is then updated in place (each layer reads its slice of the
-    old state before the stacks write the new ones), as ``DecodeGraphs``
-    replays it.
+    ``out`` (the ssm and both hybrid families) is a cache of the same structure
+    and shapes into whose tensors the new cache is written and returned: the
+    same work and the same bits as the call that allocates.  The old K/V are
+    copied into ``out``'s first.  ``out`` may be the input cache itself, which is
+    then updated in place (each layer reads its slice of the old state before
+    the stacks write the new ones, each site writes its K/V row in place, and
+    ``pos`` moves on last), as ``DecodeGraphs`` replays it.
     """
-    if out is not None and cfg.family != "ssm":
-        raise ValueError(f"decode_step: out= takes an ssm cache, not the {cfg.family} family's")
+    if out is not None and cfg.family not in _MAMBA2_LOOP:
+        raise ValueError(f"decode_step: out= takes an ssm, hybrid or zamba2 cache, not the {cfg.family} family's")
     out = out or {}
     with span("model.decode_step"):
         _check(cfg, params)
         with span("model.embed"):
             x = embed(cfg, params.embedding, tokens)
         e = x
-        new_cache: dict[str, Any] = {"pos": torch.add(cache["pos"], 1, out=out.get("pos"))}
+        new_cache: dict[str, Any] = {}
         if cfg.family != "ssm":
-            pos = int(cache["pos"])
+            pos = cache["pos"] if _pos_on_device(cfg, params) else int(cache["pos"])
             with span("model.new_cache"):
-                new_k, new_v = cache["k"].clone(), cache["v"].clone()
+                if "k" not in out:
+                    new_k, new_v = cache["k"].clone(), cache["v"].clone()
+                else:
+                    new_k, new_v = out["k"], out["v"]
+                    if new_k is not cache["k"]:
+                        new_k.copy_(cache["k"])
+                        new_v.copy_(cache["v"])
             new_cache["k"], new_cache["v"] = new_k, new_v
-        if cfg.family in ("ssm", "hybrid", "zamba2"):
+        if cfg.family in _MAMBA2_LOOP:
             states, convs = [], []
             for i, lp in enumerate(params.layers):
                 j = _site(cfg, i)
@@ -417,6 +438,7 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
             for i, lp in enumerate(params.layers):
                 with span("model.attention", ("row", i)):
                     x = _attn_block_decode(cfg, lp, x, new_k[i], new_v[i], pos)
+        new_cache["pos"] = torch.add(cache["pos"], 1, out=out.get("pos"))
         with span("model.head"):
             x = rmsnorm(params.final_norm, x, cfg.norm_eps)
             return vocab_logits(cfg, params.embedding, x), new_cache
@@ -455,7 +477,7 @@ def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
                 write_kv(row, k, v)
                 return x
 
-        if cfg.family in ("ssm", "hybrid", "zamba2"):
+        if cfg.family in _MAMBA2_LOOP:
             e = x
             states, convs = [], []
             for i, lp in enumerate(params.layers):
@@ -492,10 +514,10 @@ DECODE_GRAPHS = {"captures": 0, "replays": 0}  # graphs captured and replayed by
 
 def decode_graphable(cfg: ArchConfig, params: nn.Module) -> bool:
     """Whether ``DecodeGraphs`` may replay ``decode_step`` for ``params``: they sit on the card, the
-    family's cache holds no positional K/V (each other family's step reads ``int(cache["pos"])``
-    on the host, which a captured graph cannot), and no module has a ``tp_group`` (a sharded
-    decode's collectives stay eager)."""
-    return (cfg.family == "ssm" and params.embedding.embed.device.type == "cuda"
+    family's step reads nothing back to the host (the ssm's and the hybrids', which keep ``pos`` on
+    the device; dense, moe and vlm read ``int(cache["pos"])``, which a captured graph cannot), and no
+    module has a ``tp_group`` (a sharded decode's collectives stay eager)."""
+    return (cfg.family in _MAMBA2_LOOP and params.embedding.embed.device.type == "cuda"
             and all(getattr(m, "tp_group", None) is None for m in params.modules()))
 
 
@@ -508,15 +530,17 @@ class DecodeGraphs:
     """``decode_step`` captured as a CUDA graph and replayed, for params that ``decode_graphable``
     accepts: one ``cudaGraphLaunch`` a step in place of some 60 launches a layer from Python.  The
     replay runs the same kernels on the same data in the same order as the eager step, so its
-    logits and cache are the eager step's, bit for bit.
+    logits and cache are the eager step's, bit for bit.  In the hybrid families the static cache
+    holds the K/V too, into which each replay writes the sites' new rows at the ``pos`` it holds.
 
     The runner holds one graph, for the shape (of the tokens and of each cache tensor) of its
     latest call: a static tokens buffer and a static cache, which the graph updates in place
     (``decode_step(..., out=cache)``), in a memory pool of the graph's own.  A call whose cache
-    is the static one replays the graph; any other cache (a prefill's) is copied into it first;
-    a call of another shape drops the graph and captures one for its shape.  What a call returns
-    is the runner's own: the next call writes over it, so read the logits before the next call
-    and pass the cache back only into the next one.  The graph and its pool go with the runner.
+    is the static one replays the graph; any other cache (a prefill's, on a batch's first step)
+    is copied into it first; a call of another shape drops the graph and captures one for its
+    shape.  What a call returns is the runner's own: the next call writes over it, so read the
+    logits before the next call and pass the cache back only into the next one.  The graph and
+    its pool go with the runner.
     """
 
     def __init__(self, cfg: ArchConfig, params: LM):

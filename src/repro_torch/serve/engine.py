@@ -4,10 +4,11 @@ Uses the model's prefill/decode steps and the HybridCacheManager for
 placement decisions (a token's bytes there are its K and V over the cache's
 rows).  The engine runs on the card unless the caller passes
 ``device="cpu"``; its params must already sit on that device.  Where
-``transformer.decode_graphable`` accepts them (an ssm model on the card, not
-tensor-parallel) each decode step is a replayed CUDA graph
+``transformer.decode_graphable`` accepts them (an ssm, hybrid or zamba2 model
+on the card, not tensor-parallel) each decode step is a replayed CUDA graph
 (``transformer.DecodeGraphs``, the engine's own, which refuses other params);
-every other decode runs ``decode_step`` eagerly.
+every other decode (dense, moe, vlm, encdec, the CPU) runs ``decode_step``
+eagerly.
 """
 from __future__ import annotations
 

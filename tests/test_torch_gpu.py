@@ -417,29 +417,41 @@ def test_kernel_functions_refuse_dtensors(cuda):
 
 
 # ------------------------------------------------------------- decode graphs
-def _graph_engine(cuda, compute_dtype="float32"):
+def _graph_engine(cuda, compute_dtype="float32", arch="mamba2-780m"):
+    """A reduced model on the card (the registry's ``arch``, or with ``"zamba2"`` the tiny zamba2 of
+    ``test_torch_zamba2.py``, its params in ``compute_dtype`` too) and a maker of engines over it."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
     from repro_torch.models import transformer
+    from repro_torch.models.config import ArchConfig
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = dataclasses.replace(ARCHS["mamba2-780m"].reduced(), compute_dtype=compute_dtype)
+    if arch == "zamba2":
+        from test_torch_zamba2 import ARCH
+
+        cfg = ArchConfig(**dict(ARCH, param_dtype=compute_dtype, compute_dtype=compute_dtype))
+    else:
+        cfg = dataclasses.replace(ARCHS[arch].reduced(), compute_dtype=compute_dtype)
     params = transformer.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
     return cfg, params, lambda: ServeEngine(cfg, params, max_len=64, batch_size=4)
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_served_by_replayed_graphs_is_the_eager_decode_bit_for_bit(cuda, compute_dtype):
+@pytest.mark.parametrize("arch,compute_dtype", [("mamba2-780m", "float32"), ("mamba2-780m", "bfloat16"),
+                                                ("zamba2", "bfloat16")],
+                         ids=["float32", "bfloat16", "zamba2-bfloat16"])
+def test_served_by_replayed_graphs_is_the_eager_decode_bit_for_bit(cuda, arch, compute_dtype):
     """Three batches (two of 4 requests with other prompts, then one of 2) through an engine
     whose decode replays captured graphs: each step's logits and cache, and so every served
     token, are those of an eager ``prefill`` + ``decode_step`` loop, bit for bit; no state
     carries from one batch into the next through the static cache.  Each shape captures
-    one graph, and each decode call replays it."""
+    one graph (the capture itself refuses a step that reads back to the host), and each
+    decode call replays it.  The eager step syncs with the host nowhere: zamba2's keeps
+    ``pos`` on the card and writes each site's K/V row there."""
     from repro_torch.models import transformer
     from repro_torch.serve.engine import Request
 
-    cfg, params, make = _graph_engine(cuda, compute_dtype)
+    cfg, params, make = _graph_engine(cuda, compute_dtype, arch)
     eng = make()
     assert eng._graphs is not None
     seen, real = [], eng._decode
@@ -462,7 +474,11 @@ def test_served_by_replayed_graphs_is_the_eager_decode_bit_for_bit(cuda, compute
         want = [tok[:, 0].tolist()]
         assert len(seen) == new_tokens - 1
         for got_logits, got_cache in seen:
-            logits, cache = transformer.decode_step(cfg, params, cache, tok)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, cache = transformer.decode_step(cfg, params, cache, tok)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             assert torch.equal(got_logits, logits)
             assert all(torch.equal(x, y) for x, y in zip(got_cache, transformer._leaves(cache)))
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
