@@ -8,11 +8,16 @@ caller's grad mode, as the reference's functions may be differentiated;
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
 With ``cfg.remat`` set and grad enabled, each layer body runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): the
-backward keeps each layer's input and recomputes the rest.  The
-hybrid (zamba2-style) family runs Mamba2 layers and applies ONE
-weight-shared attention block (``shared_block``) after every
-``attn_every``-th layer; each application site has its own K/V cache (weights
-shared, caches not).
+backward keeps each layer's input and recomputes the rest.
+
+One walk, ``_walk``, holds the layer order for ``forward``, ``prefill`` and
+``decode_step`` in every family: a dense, moe or vlm layer is attention then
+the FFN; the ssm, hybrid and zamba2 families run a loop of Mamba2 layers, into
+which the hybrid (zamba2-style) family puts ONE weight-shared attention block
+(``shared_block``) after every ``attn_every``-th layer, and zamba2 its sites
+before theirs.  Each shared-block site has its own K/V row (weights shared,
+caches not).  The three steps differ only in the two hooks they hand the walk:
+how attention runs at a K/V row, and how the Mamba2 mixer runs.
 
 The zamba2 family is the published Zamba2 (arXiv:2411.15242; transformers'
 ``modeling_zamba2.py``), which the port alone holds.  Its Mamba2 layer i
@@ -23,9 +28,7 @@ carried to every site): attention over the 2 x d_model input (RoPE where
 ``mem_rope``, scores scaled by (head_dim / 2)^-0.5), ``rmsnorm``, then a
 GELU-gated MLP whose input projection adds the site's own LoRA; the site's own
 linear then maps the block's output to t_j.  The block has no residual of its
-own.  Both hybrid families walk one Mamba2 layer loop (``_site`` says where a
-site is); each site has its own K/V row.  The cache keeps the reference's
-stacked layouts:
+own.  The cache keeps the reference's stacked layouts:
 
 - ssm: ``ssm.state`` (layers, B, H, P, N) float32, ``ssm.conv``
   (layers, B, conv_width-1, conv_dim) in the cache dtype, ``pos``;
@@ -46,8 +49,8 @@ rank, and leaves it before the unembedding.  In a sharded decode the K/V
 leaves may hold the rank's shard of the sequence (``Attention.seq_split``),
 while ``pos`` stays global.
 
-``DecodeGraphs`` replays the ssm and hybrid families' ``decode_step`` on the
-card as a captured CUDA graph, where ``decode_graphable`` allows it;
+``DecodeGraphs`` replays the ssm, hybrid and zamba2 families' ``decode_step``
+on the card as a captured CUDA graph, where ``decode_graphable`` allows it;
 ``ServeEngine`` owns one.
 """
 from __future__ import annotations
@@ -189,60 +192,56 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None, devic
     return LM(cfg, generator, dev)
 
 
-# ------------------------------------------------------------------ forward
+# ------------------------------------------------------------- the layer walk
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def _ffn(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The block's second half, x + ffn(ln2(x)), and the MoE aux loss (zero without MoE)."""
-    xn = rmsnorm(lp.ln2, x, cfg.norm_eps)
-    if cfg.family == "moe":
-        out, aux = moe_apply(cfg, lp.moe, xn)
-        return x + out, aux
-    return x + mlp(lp.mlp, xn, cfg.compute_dtype), torch.zeros((), dtype=torch.float32, device=x.device)
-
-
-def _dense_body(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, positions: torch.Tensor):
-    with span("model.attention"):
-        x = x + attention(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
-        return _ffn(cfg, lp, x)
+def _site_layers(cfg: ArchConfig) -> range | tuple[int, ...]:
+    """The Mamba2 layers that hold a shared-block site, in site (K/V row) order: the hybrid's
+    follow each layer i with (i + 1) % attn_every == 0; zamba2's add to the input of each
+    layer in ``hybrid_layer_ids``.  The other families have none."""
+    if cfg.family == "hybrid":
+        return range(cfg.attn_every - 1, cfg.num_layers, cfg.attn_every)
+    if cfg.family == "zamba2":
+        return cfg.hybrid_layer_ids
+    return ()
 
 
 def _site(cfg: ArchConfig, i: int) -> int | None:
-    """The shared-block site at Mamba2 layer ``i``, or None: the hybrid's follows layer i when
-    (i + 1) % attn_every == 0 (site (i + 1) // attn_every - 1); zamba2's adds to the input of
-    each layer in ``hybrid_layer_ids`` (site: its index there)."""
-    if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-        return (i + 1) // cfg.attn_every - 1
-    if cfg.family == "zamba2" and i in cfg.hybrid_layer_ids:
-        return cfg.hybrid_layer_ids.index(i)
-    return None
+    """The shared-block site at Mamba2 layer ``i``, or None."""
+    layers = _site_layers(cfg)
+    return layers.index(i) if i in layers else None
 
 
 def kv_rows(cfg: ArchConfig) -> int:
     """Rows of the K/V cache: one per attention layer, per site in the hybrid families, none for ssm."""
-    if cfg.family == "ssm":
-        return 0
-    if cfg.family == "hybrid":
-        return cfg.num_layers // cfg.attn_every
-    if cfg.family == "zamba2":
-        return len(cfg.hybrid_layer_ids)
-    return cfg.num_layers
+    return len(_site_layers(cfg)) if cfg.family in _MAMBA2_LOOP else cfg.num_layers
+
+
+def _block(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, row: int, attend) -> tuple[torch.Tensor, torch.Tensor]:
+    """An attention block: x + attention(ln1(x)) at K/V row ``row``, then x + ffn(ln2(x));
+    returns it and the MoE aux loss (zero without MoE)."""
+    with span("model.attention", ("row", row)):
+        x = x + attend(lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), row, True)
+        xn = rmsnorm(lp.ln2, x, cfg.norm_eps)
+        if cfg.family == "moe":
+            out, aux = moe_apply(cfg, lp.moe, xn)
+            return x + out, aux
+        return x + mlp(lp.mlp, xn, cfg.compute_dtype), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _shared_block(cfg: ArchConfig, params: LM, j: int, x: torch.Tensor, e: torch.Tensor, attend) -> torch.Tensor:
     """What zamba2's site ``j`` adds to its layer's input: block j mod ``num_mem_blocks`` on
-    [x, e], its MLP's input projection with the site's LoRA, then the site's linear.
-    ``attend(attn, u)`` is the block's attention as the caller runs it: over the whole
-    sequence, a prefill that writes the site's K/V row, or a decode step that reads it."""
+    [x, e], its MLP's input projection with the site's LoRA, then the site's linear.  The
+    block attends at K/V row j, rotated where ``mem_rope``."""
     k = j % cfg.num_mem_blocks
     blk, site = params.blocks[k], params.sites[j]
     cd = _dtype(cfg.compute_dtype)
     with span("model.shared_block", ("site", j, "block", k, "layer", cfg.hybrid_layer_ids[j])):
         u = rmsnorm(blk.ln1, torch.cat([x, e], dim=-1), cfg.norm_eps)
         with span("model.attention", ("row", j)):
-            h = attend(blk.attn, u)
+            h = attend(blk.attn, u, j, cfg.mem_rope)
         h = rmsnorm(blk.ln2, h, cfg.norm_eps).to(cd)
         gu = h @ blk.gate_up.to(cd) + (h @ site.lora_a.to(cd)) @ site.lora_b.to(cd)
         gate, up = gu.chunk(2, dim=-1)
@@ -257,24 +256,40 @@ def remat(cfg: ArchConfig, body, *args):
     return body(*args)
 
 
-def _mamba2_body(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, positions: torch.Tensor,
-                 e: torch.Tensor | None) -> torch.Tensor:
-    """The reference's scan body for the ssm and hybrid families: Mamba2 layer ``i``
-    and, at a shared site, the shared block; zamba2's site comes first and adds to the
-    layer's input (``e``: the token embeddings)."""
+def _layer(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, e: torch.Tensor, attend, mix):
+    """The reference's scan body: layer ``i`` and what sits at it, in the module docstring's
+    order (``e``: the token embeddings, for zamba2's sites).  Returns (x out, what the layer
+    leaves: an attention layer's MoE aux loss, a Mamba2 layer's new state as ``mix`` gives it)."""
     lp = params.layers[i]
+    if cfg.family not in _MAMBA2_LOOP:
+        return _block(cfg, lp, x, i, attend)
     j = _site(cfg, i)
     xin = x
     if cfg.family == "zamba2" and j is not None:
-        rope = positions if cfg.mem_rope else None
-        xin = x + _shared_block(cfg, params, j, x, e, lambda p, u: attention(cfg, p, u, rope))
+        xin = x + _shared_block(cfg, params, j, x, e, attend)
     with span("model.mamba2", ("layer", i)):
-        x = x + lp.ssm(rmsnorm(lp.norm, xin, cfg.norm_eps))
+        h, new = mix(i, lp.ssm, rmsnorm(lp.norm, xin, cfg.norm_eps))
+        x = x + h
     if cfg.family == "hybrid" and j is not None:
-        x, _ = _dense_body(cfg, params.shared_block, x, positions)
-    return x
+        x, _ = _block(cfg, params.shared_block, x, j, attend)
+    return x, new
 
 
+def _walk(cfg: ArchConfig, params: LM, x: torch.Tensor, attend, mix) -> tuple[torch.Tensor, list]:
+    """The decoder-only layer order, the one walk of ``forward``, ``prefill`` and
+    ``decode_step``: ``_layer`` for each layer, one ``remat`` body a layer (inert in the two
+    inference steps).  The steps differ only in the two hooks they pass:
+    ``attend(attn, u, row, rope)``, attention of ``u`` at K/V row ``row`` (RoPE unless
+    ``rope`` is off), and ``mix(i, mixer, u)``, Mamba2 layer i's mixer: (its output, its new
+    state or None).  Returns the stream and what each layer left (``_layer``)."""
+    e, left = x, []
+    for i in range(len(params.layers)):
+        x, out = remat(cfg, _layer, cfg, params, i, x, e, attend, mix)
+        left.append(out)
+    return x, left
+
+
+# ------------------------------------------------------------------ forward
 def _embed_inputs(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> torch.Tensor:
     """Token embeddings; for the vlm family the patch embeddings come first."""
     x = embed(cfg, params.embedding, batch["tokens"])
@@ -292,17 +307,12 @@ def forward(cfg: ArchConfig, params: LM, batch: dict[str, Any]) -> tuple[torch.T
     _check(cfg, params)
     x = _embed_inputs(cfg, params, batch)
     positions = _positions(x.shape[0], x.shape[1], x.device)
+    x, left = _walk(cfg, params, x, lambda p, u, row, rope: attention(cfg, p, u, positions if rope else None),
+                    lambda i, mixer, u: (mixer(u), None))
     if cfg.family in _MAMBA2_LOOP:
-        e = x if cfg.family == "zamba2" else None
-        for i in range(len(params.layers)):
-            x = remat(cfg, _mamba2_body, cfg, params, i, x, positions, e)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        auxs = []
-        for lp in params.layers:
-            x, a = remat(cfg, _dense_body, cfg, lp, x, positions)
-            auxs.append(a)
-        aux = torch.stack(auxs).sum()
+        aux = torch.stack(left).sum()
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = x[:, batch["patch_embeds"].shape[1]:]
@@ -355,13 +365,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
 
 
 # ------------------------------------------------------------------- decode
-def _attn_block_decode(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       pos: int | torch.Tensor) -> torch.Tensor:
-    """One token through an attention block; writes its K/V row into ``k``/``v`` in place."""
-    h, _ = attention_decode(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), {"k": k, "v": v}, pos)
-    return _ffn(cfg, lp, x + h)[0]
-
-
 def _pos_on_device(cfg: ArchConfig, params: LM) -> bool:
     """Whether ``decode_step`` hands attention ``pos`` as the cache's device tensor: in the
     hybrid families, unless a sharded decode splits the K/V's sequence (``seq_split``, which
@@ -369,6 +372,12 @@ def _pos_on_device(cfg: ArchConfig, params: LM) -> bool:
     if cfg.family == "zamba2":
         return True
     return cfg.family == "hybrid" and params.shared_block.attn.seq_split is None
+
+
+def _stack_states(news: list[dict[str, torch.Tensor]], into: dict) -> dict[str, torch.Tensor]:
+    """The Mamba2 layers' new states and conv tails as the cache's stacks, into ``into``'s tensors if it has them."""
+    with span("model.new_cache"):
+        return {k: torch.stack([new[k] for new in news], out=into.get(k)) for k in ("state", "conv")}
 
 
 @torch.inference_mode()
@@ -399,7 +408,6 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
         _check(cfg, params)
         with span("model.embed"):
             x = embed(cfg, params.embedding, tokens)
-        e = x
         new_cache: dict[str, Any] = {}
         if cfg.family != "ssm":
             pos = cache["pos"] if _pos_on_device(cfg, params) else int(cache["pos"])
@@ -412,32 +420,16 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
                         new_k.copy_(cache["k"])
                         new_v.copy_(cache["v"])
             new_cache["k"], new_cache["v"] = new_k, new_v
+
+        def attend(p, u, row, rope):
+            return attention_decode(cfg, p, u, {"k": new_k[row], "v": new_v[row]}, pos, rope=rope)[0]
+
+        def mix(i, mixer, u):
+            return mixer.decode(u, {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]})
+
+        x, news = _walk(cfg, params, x, attend, mix)
         if cfg.family in _MAMBA2_LOOP:
-            states, convs = [], []
-            for i, lp in enumerate(params.layers):
-                j = _site(cfg, i)
-                xin = x
-                if cfg.family == "zamba2" and j is not None:
-                    def attend(p, u, j=j):
-                        return attention_decode(cfg, p, u, {"k": new_k[j], "v": new_v[j]}, pos, rope=cfg.mem_rope)[0]
-                    xin = x + _shared_block(cfg, params, j, x, e, attend)
-                with span("model.mamba2", ("layer", i)):
-                    sc = {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}
-                    h, new_sc = lp.ssm.decode(rmsnorm(lp.norm, xin, cfg.norm_eps), sc)
-                    x = x + h
-                    states.append(new_sc["state"])
-                    convs.append(new_sc["conv"])
-                if cfg.family == "hybrid" and j is not None:
-                    with span("model.attention", ("row", j)):
-                        x = _attn_block_decode(cfg, params.shared_block, x, new_k[j], new_v[j], pos)
-            with span("model.new_cache"):
-                into = out.get("ssm", {})
-                new_cache["ssm"] = {"state": torch.stack(states, out=into.get("state")),
-                                    "conv": torch.stack(convs, out=into.get("conv"))}
-        else:
-            for i, lp in enumerate(params.layers):
-                with span("model.attention", ("row", i)):
-                    x = _attn_block_decode(cfg, lp, x, new_k[i], new_v[i], pos)
+            new_cache["ssm"] = _stack_states(news, out.get("ssm", {}))
         new_cache["pos"] = torch.add(cache["pos"], 1, out=out.get("pos"))
         with span("model.head"):
             x = rmsnorm(params.final_norm, x, cfg.norm_eps)
@@ -450,7 +442,7 @@ def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
 
     For the ssm and both hybrid families the cache holds each Mamba2 layer's final
     recurrent state and the pre-conv tail that decode's conv continues from;
-    for every family with attention it holds each layer's (the hybrid: each
+    for every family with attention it holds each layer's (the hybrids: each
     site's) K/V, zero past the prompt.  Attention here is the plain path
     whatever ``attention_impl`` says, as in the reference.  A vlm patch prefix
     extends the cached sequence, so ``max_len`` grows by its length.
@@ -465,42 +457,20 @@ def prefill(cfg: ArchConfig, params: LM, batch: dict[str, Any], max_len: int):
         positions = _positions(b, s, x.device)
         cache: dict[str, Any] = _kv_cache(cfg, b, max_len, cd, x.device)
 
-        def write_kv(row: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        def attend(p, u, row, rope):
+            h, k, v = attention_prefill(cfg, p, u, positions if rope else None)
             with span("model.new_cache"):
                 cache["k"][row, :, :s] = k.to(cache["k"].dtype)
                 cache["v"][row, :, :s] = v.to(cache["v"].dtype)
+            return h
 
-        def attn_block(lp: DenseLayer, x: torch.Tensor, row: int) -> torch.Tensor:
-            with span("model.attention", ("row", row)):
-                h, k, v = attention_prefill(cfg, lp.attn, rmsnorm(lp.ln1, x, cfg.norm_eps), positions)
-                x, _ = _ffn(cfg, lp, x + h)
-                write_kv(row, k, v)
-                return x
+        def mix(i, mixer, u):
+            h, state, conv_tail = mixer(u, return_state=True)
+            return h, {"state": state.to(torch.float32), "conv": conv_tail.to(cd)}
 
+        x, news = _walk(cfg, params, x, attend, mix)
         if cfg.family in _MAMBA2_LOOP:
-            e = x
-            states, convs = [], []
-            for i, lp in enumerate(params.layers):
-                j = _site(cfg, i)
-                xin = x
-                if cfg.family == "zamba2" and j is not None:
-                    def attend(p, u, j=j):
-                        h, k, v = attention_prefill(cfg, p, u, positions if cfg.mem_rope else None)
-                        write_kv(j, k, v)
-                        return h
-                    xin = x + _shared_block(cfg, params, j, x, e, attend)
-                with span("model.mamba2", ("layer", i)):
-                    h, state, conv_tail = lp.ssm(rmsnorm(lp.norm, xin, cfg.norm_eps), return_state=True)
-                    x = x + h
-                    states.append(state.to(torch.float32))
-                    convs.append(conv_tail.to(cd))
-                if cfg.family == "hybrid" and j is not None:
-                    x = attn_block(params.shared_block, x, j)
-            with span("model.new_cache"):
-                cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
-        else:
-            for i, lp in enumerate(params.layers):
-                x = attn_block(lp, x, i)
+            cache["ssm"] = _stack_states(news, {})
         cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
         with span("model.head"):
             x = rmsnorm(params.final_norm, x, cfg.norm_eps)
