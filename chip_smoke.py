@@ -69,6 +69,12 @@ with random weights from seed 0, and checks that each went through its kernel:
   heads; flash on 8 of 16 heads), then mamba2-780m one more step, two
   microbatches of 2 x 1024 tokens, int8-compressed (192 ``ssd_scan`` launches,
   the compression's own time);
+- ``decode_attention`` at zamba2-7b-instruct's site shape (B = 32, H = K = 32,
+  D = 224, Smax 1088): held against its plain version, then timed at pos 288,
+  544 and 1056 beside its bound, the plain path and
+  ``scaled_dot_product_attention`` (a yardstick only); zamba2-2.7b's serving
+  launches it 9 times for each of the two decode steps run while its decode
+  graph is captured, and not at all per replay;
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -161,6 +167,11 @@ FAMILIES = (
 )
 
 
+# zamba2-7b-instruct.chat's decode: a site's cache (B, Smax, K, D), its 13 sites a step, the
+# positions at the cycle's three prompt lengths plus half the answer (256, 512, 1024 + 32)
+DA_SITE_SHAPE = dict(b=32, smax=1088, h=32, kh=32, d=224)
+DA_SITES = 13
+DA_POSITIONS = (288, 544, 1056)
 MERGE_BENCH_SHAPE = dict(g=64, t=512)  # benchmarks/bench_kernels.py's merge tiles
 # ~8.4M keys a side: about the L2 of a store with the paper's 128 MB L0, growth 4
 # and SD's 251-B mean KV (benchmarks/common.py)
@@ -480,6 +491,77 @@ def phase_fa_kernel() -> dict:
                          **{name: {"max_abs_err": errs[dtype, "zamba2"], "rel_err_vs_f32": rels[dtype, "zamba2"],
                                    **zamba2[dtype]}
                             for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}},
+    }
+
+
+def da_inputs(b, smax, h, kh, d, seed):
+    r = np.random.default_rng(seed)
+    return [torch.tensor(r.standard_normal(shape), dtype=torch.float32, device="cuda").to(torch.bfloat16)
+            for shape in ((b, 1, h, d), (b, smax, kh, d), (b, smax, kh, d))]
+
+
+def da_bound(b, h, kh, d, pos) -> tuple[float, int]:
+    """(bound_ms, bytes) of one call: rows 0..pos of K and V over every kv head read once, q read
+    and the output written once, in bf16; bound by bytes (~4 x D operations a row and q head)."""
+    nbytes = 2 * (b * (pos + 1) * 2 * kh * d + 2 * b * h * d)
+    hbm, _ = h100_peaks()
+    return nbytes / hbm * 1e3, nbytes
+
+
+@torch.inference_mode()
+def phase_decode_attention() -> dict:
+    """The decode-attention kernel at zamba2-7b-instruct.chat's site shape: checked against its
+    plain version at pos 1056 (the test's bars), then timed by CUDA events at each of
+    ``DA_POSITIONS`` beside its bound, the plain path (``ref``: the gather, einsums and masked
+    softmax of ``layers._attend_cache``) and ``scaled_dot_product_attention`` over rows 0..pos
+    (a yardstick only: the port never calls it).  ``step_ms`` is 13 sites' calls."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers import kv_head_map
+
+    sh = DA_SITE_SHAPE
+    b, smax, h, kh, d = (sh[x] for x in ("b", "smax", "h", "kh", "d"))
+    q, k, v = da_inputs(b, smax, h, kh, d, 0)
+    kvm = kv_head_map(h, kh).to("cuda")
+    scale = (d / 2) ** -0.5
+    at = torch.tensor(DA_POSITIONS[-1], dtype=torch.int32, device="cuda")
+    out = ops.decode_attention(q, k, v, kvm, at, scale=scale)
+    ref = decode_attention_ref(q, k, v, kvm, at, scale=scale)
+    ref32 = decode_attention_ref(q.float(), k.float(), v.float(), kvm, at, scale=scale)
+    torch.cuda.synchronize()
+    err, err32 = ((out.float() - r.float()).abs().max().item() for r in (ref, ref32))
+    if not torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2) or \
+            not torch.allclose(out.float(), ref32, atol=1e-5, rtol=2**-7):
+        fail(f"decode_attention at {sh}: differs from the plain version by {err}, from float32 by {err32}")
+    del ref32
+    by_pos = {}
+    for pos in DA_POSITIONS:
+        at = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        qt = q.transpose(1, 2)                                        # (B, H, 1, D)
+        kt, vt = (t[:, :pos + 1].transpose(1, 2) for t in (k, v))     # (B, K, pos + 1, D) views
+        ms = cuda_ms(lambda: ops.decode_attention(q, k, v, kvm, at, scale=scale), iters=5 * DA_SITES)
+        plain = cuda_ms(lambda: decode_attention_ref(q, k, v, kvm, at, scale=scale), iters=DA_SITES)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale, enable_gqa=True), iters=5 * DA_SITES)
+        bound_ms, nbytes = da_bound(b, h, kh, d, pos)
+        by_pos[pos] = dict(ms=ms, bound_ms=bound_ms, roofline=bound_ms / ms, plain_ms=plain, library_ms=lib,
+                           bytes=nbytes, step_ms=DA_SITES * ms, step_bound_ms=DA_SITES * bound_ms,
+                           step_plain_ms=DA_SITES * plain, host_ms=host_ms(
+                               lambda: ops.decode_attention(q, k, v, kvm, at, scale=scale), iters=DA_SITES))
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "replaces": None,  # no TPU kernel: the reference decodes through plain jnp
+        "launches": None,  # filled from the main paths
+        "shape": sh,
+        "dtype": "bfloat16",
+        "max_abs_err": err,
+        "max_abs_err_vs_f32": err32,
+        "by_pos": by_pos,
+        "bound_by": "bytes",
+        "design": "two passes: chunks of 64 rows per (kv head, batch row) in f32, then a merge in chunk order",
+        "nvidia_smi": smi(),
     }
 
 
@@ -1167,8 +1249,10 @@ def check_hybrid_f32(cfg, params) -> dict:
 def phase_hybrid() -> tuple[dict, dict, dict]:
     """zamba2-2.7b at full width and depth: forward and loss_fn through both
     kernels (54 ssd_scan and 9 flash_attention launches a call), then serving
-    (54 ssd_scan launches a prefill, no flash_attention)."""
+    (54 ssd_scan launches a prefill, no flash_attention, and 9 decode_attention
+    launches for each of the two decode steps run while the graph is captured)."""
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import get_model
@@ -1225,11 +1309,14 @@ def phase_hybrid() -> tuple[dict, dict, dict]:
         "model_check_f32": model_check,
     }
 
-    ssd_ops.LAUNCHES = fa_ops.LAUNCHES = 0
+    ssd_ops.LAUNCHES = fa_ops.LAUNCHES = da_ops.LAUNCHES = 0
     served = serve_batches(cfg, params)
-    serve_launches = {"ssd_scan": ssd_ops.LAUNCHES, "flash_attention": fa_ops.LAUNCHES}
-    if serve_launches != {"ssd_scan": 2 * cfg.num_layers, "flash_attention": 0}:
-        fail(f"zamba2 serving launched {serve_launches}, expected {2 * cfg.num_layers} ssd_scan, 0 flash_attention")
+    serve_launches = {"ssd_scan": ssd_ops.LAUNCHES, "flash_attention": fa_ops.LAUNCHES,
+                      "decode_attention": da_ops.LAUNCHES}
+    # both batches fill one decode graph's shape: captured once, a warm-up step and the captured one
+    want = {"ssd_scan": 2 * cfg.num_layers, "flash_attention": 0, "decode_attention": 2 * sites}
+    if serve_launches != want:
+        fail(f"zamba2 serving launched {serve_launches}, expected {want}")
 
     # where the time goes, outside the counted runs: forward, loss_fn, one prefill and one decode step
     prof = profile(lambda: m.forward(fcfg, params, batch), top=8, names=("ssd_", "flash_attention"))
@@ -2764,6 +2851,7 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _nvcc
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.merge_runs import kernel as merge_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -2772,7 +2860,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = smi()
     t0 = time.perf_counter()
-    kernels = {"ssd_scan": ssd_kernel, "flash_attention": fa_kernel, "merge_runs": merge_kernel}
+    kernels = {"ssd_scan": ssd_kernel, "flash_attention": fa_kernel, "merge_runs": merge_kernel,
+               "decode_attention": da_kernel}
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, all at once
         list(pool.map(lambda k: k.build(), kernels.values()))
     emit({"phase": "device", "nvidia_smi": card, "kind": torch.cuda.get_device_name(0),
@@ -2783,6 +2872,7 @@ def main() -> None:
 
     ssd_row = phase_ssd_kernel()
     fa_row = phase_fa_kernel()
+    da_row = phase_decode_attention()
     merge_row = phase_merge_kernel()
     merge_path, merge_row["launches"] = phase_merge_path()
     emit(merge_path)
@@ -2845,7 +2935,9 @@ def main() -> None:
     ssd_row["zamba2_forward_device_share"] = hybrid["device_share"]["ssd_scan"]
     for name, row in (("ssd_scan", ssd_row), ("flash_attention", fa_row), ("merge_runs", merge_row)):
         row["bench_shape"] = bench_kernel_rows[name]
-    emit({"kernels": [ssd_row, fa_row, merge_row]})
+    da_row["launches_by_path"] = {"zamba2_serve": hybrid_launches["zamba2_serve"]["decode_attention"]}
+    da_row["launches"] = sum(da_row["launches_by_path"].values())
+    emit({"kernels": [ssd_row, fa_row, merge_row, da_row]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

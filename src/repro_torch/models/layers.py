@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.decode_attention import kernel as da_kernel
+from ..kernels.decode_attention import ops as da_ops
 from ..sharding import tp
 from .config import ArchConfig
 
@@ -416,6 +418,9 @@ def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict
     compare on the device, the same values as from an int, so that the step can be
     captured as a CUDA graph.  It must lie inside the cache, and a sequence-split
     cache refuses it (its rank's shard decides on the host who writes the row).
+    Where the call fits ``kernels/decode_attention`` (``_decode_kernel_fits``: on the
+    card, bfloat16, a device ``pos``, unsharded) it attends there, reading the cache's
+    rows up to ``pos`` in place; elsewhere through ``_attend_cache``.
     """
     cd = _dtype(cfg.compute_dtype)
     g, split = p.tp_group, p.seq_split
@@ -441,11 +446,27 @@ def attention_decode(cfg: ArchConfig, p: Attention, x: torch.Tensor, cache: dict
     elif offset <= pos < offset + smax:
         k_cache[:, pos - offset] = k_new[:, 0].to(k_cache.dtype)
         v_cache[:, pos - offset] = v_new[:, 0].to(v_cache.dtype)
+    if _decode_kernel_fits(cfg, p, q, k_cache, v_cache, pos):
+        out = da_ops.decode_attention(q, k_cache, v_cache, p.kvm, pos, scale=softmax_scale(cfg, q.shape[3]),
+                                      window=cfg.sliding_window)
+        return tp.reduce(torch.einsum("bshk,hkd->bsd", out, p.wo.to(cd)), g), {"k": k_cache, "v": v_cache}
     kpos = torch.arange(smax, device=x.device)[None, :] + offset
     valid = kpos <= pos
     if cfg.sliding_window:
         valid &= kpos > pos - cfg.sliding_window
     return _attend_cache(cfg, p, q, k_cache, v_cache, valid), {"k": k_cache, "v": v_cache}
+
+
+def _decode_kernel_fits(cfg: ArchConfig, p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        pos: int | torch.Tensor) -> bool:
+    """Whether ``attention_decode`` attends through ``kernels/decode_attention``, which reads the
+    cache's rows up to ``pos`` in place, in place of ``_attend_cache``: on the card, in bfloat16
+    (compute and cache), ``pos`` on the device (the hybrid families' replayed step), neither a
+    ``tp_group`` nor a ``seq_split``, and a head size the kernel takes.  Each call that fits has
+    ``_attend_cache``'s semantics, with float32 scores and probabilities."""
+    d = q.shape[3]
+    return (q.is_cuda and isinstance(pos, torch.Tensor) and p.tp_group is None and p.seq_split is None
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16 and d % 8 == 0 and d <= da_kernel.MAX_HEAD_DIM)
 
 
 def cross_kv(cfg: ArchConfig, p: Attention, enc_out: torch.Tensor, *,

@@ -8,6 +8,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -16,6 +19,7 @@ from repro_torch.kernels.merge_runs import ops as merge_ops
 from repro_torch.kernels.merge_runs.ref import merge_runs_ref, words
 from repro_torch.kernels.ssd_scan import kernel, ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.models.layers import kv_head_map
 
 pytestmark = pytest.mark.gpu
 
@@ -414,6 +418,97 @@ def test_kernel_functions_refuse_dtensors(cuda):
     with pytest.raises(TypeError, match="DTensor"):
         fa_ops.flash_attention(dt(q), dt(k), dt(v))
     assert (ops.LAUNCHES, fa_ops.LAUNCHES) == launches
+
+
+# ------------------------------------------------------------- decode attention
+CHUNK = da_kernel.CHUNK
+
+
+@pytest.mark.parametrize(
+    "b,smax,h,kh,d,orig,stored,window,pos",
+    [(32, 1088, 32, 32, 224, 0, 32, 0, pos) for pos in (0, CHUNK - 1, CHUNK, 1056, 1087)]  # a zamba2 site
+    + [(32, 1088, 32, 32, 224, 0, 32, 100, 1056)]                                          # with a window
+    + [(4, 300, 8, 2, 128, 0, 2, w, pos) for w in (0, 50) for pos in (0, CHUNK - 1, CHUNK, 299)]  # grouped
+    + [
+        (2, 200, 8, 3, 64, 6, 3, 0, 130),     # padded q heads, clamped to the last kv head
+        (2, 150, 32, 2, 64, 0, 2, 0, 149),    # 16 q heads a kv head: two rounds over the rows
+        (2, 130, 4, 4, 96, 0, 8, 7, 129),     # k and v a view of a wider cache, by strides
+        (1, 70, 2, 1, 256, 0, 1, 0, 69),      # the widest head
+        (1, 70, 2, 2, 8, 0, 2, 0, 5),         # the narrowest
+    ],
+)
+def test_decode_attention_kernel_matches_plain(cuda, b, smax, h, kh, d, orig, stored, window, pos):
+    """The kernel against its plain version over the same bfloat16 inputs, at zamba2's site
+    shape (H = K = 32, D = 224, Smax 1088, its (D / 2)^-0.5 scale) and others, at ``pos`` on
+    the chunk edges.  Rows outside ``max(0, pos - window + 1) .. pos`` are NaN when the kernel
+    runs: it never loads them.
+
+    The plain path rounds the scores to bfloat16 before the softmax and the probabilities
+    after it; the kernel keeps both in float32 and rounds only its output.  So it lies within
+    the reference kernel tests' bfloat16 bar (2e-2, abs and rel) of the plain path, and
+    within twice bfloat16's unit roundoff (2^-7 rel) of the float32 plain version."""
+    r = np.random.default_rng(b * smax + h + pos)
+    q = torch.tensor(r.standard_normal((b, 1, h, d)), dtype=torch.float32, device=cuda).to(torch.bfloat16)
+    k, v = (torch.tensor(r.standard_normal((b, smax, stored, d)), dtype=torch.float32, device=cuda)
+            .to(torch.bfloat16)[:, :, :kh] for _ in range(2))
+    kvm = kv_head_map(h, kh, orig).to(cuda)
+    at = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    scale = (d / 2) ** -0.5
+    ref = decode_attention_ref(q, k, v, kvm, at, scale=scale, window=window)
+    ref32 = decode_attention_ref(q.float(), k.float(), v.float(), kvm, at, scale=scale, window=window)
+    kpos = torch.arange(smax, device=cuda)
+    outside = (kpos > pos) | ((kpos <= pos - window) if window else torch.zeros_like(kpos, dtype=torch.bool))
+    k[:, outside], v[:, outside] = float("nan"), float("nan")
+    before = da_ops.LAUNCHES
+    out = da_ops.decode_attention(q, k, v, kvm, at, scale=scale, window=window)
+    torch.cuda.synchronize()
+    assert da_ops.LAUNCHES == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), ref32, atol=1e-5, rtol=2**-7)
+    again = da_ops.decode_attention(q, k, v, kvm, at, scale=scale, window=window)
+    assert torch.equal(again, out)  # no atomics: the same inputs give the same bits
+
+
+def test_decode_attention_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(2, 1, 4, 64, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16, device=cuda)
+    kvm = torch.tensor([0, 0, 1, 1], device=cuda)
+    at = torch.tensor(3, dtype=torch.int32, device=cuda)
+    launches = da_ops.LAUNCHES
+    cases = [
+        (q.float(), k, k, kvm, at, "bfloat16"),                             # dtype
+        (q, k[..., :60], k[..., :60], kvm, at, "shapes"),                   # D differs from q's
+        (q[..., :60], k[..., :60].contiguous(), k[..., :60].contiguous(), kvm, at, "D % 8"),
+        (q, k.transpose(2, 3).contiguous().transpose(2, 3), k, kvm, at, "contiguous"),  # D strided
+        (q, k, k, kvm.int(), at, "int64"),                                 # the map's dtype
+        (q, k, k, kvm, at.long(), "int32"),                                # pos's dtype
+        (q, k, k, kvm, at.cpu(), "CUDA"),                                  # pos on the host
+    ]
+    for qq, kk, vv, m, p, match in cases:
+        with pytest.raises(ValueError, match=match):
+            da_ops.decode_attention(qq, kk, vv, m, p, scale=0.1)
+    assert da_ops.LAUNCHES == launches
+
+
+def test_replayed_zamba2_decode_launches_the_kernel_at_capture_only(cuda):
+    """The tiny bfloat16 zamba2 served through replayed graphs: ``LAUNCHES`` rises by the
+    sites once for each ``decode_step`` run while a graph is captured (its warm-up step and
+    the captured one) and by nothing per replay, so each replayed step runs the kernel."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request
+
+    cfg, _, make = _graph_engine(cuda, "bfloat16", "zamba2")
+    eng = make()
+    sites = len(cfg.hybrid_layer_ids)
+    counts = []
+    for _ in range(2):  # the first batch captures, the second (same shape) only replays
+        before = (da_ops.LAUNCHES, dict(transformer.DECODE_GRAPHS))
+        eng.run_batch([Request(i, torch.arange(8) * (i + 1) % cfg.vocab_size, max_new_tokens=5) for i in range(4)])
+        counts.append((da_ops.LAUNCHES - before[0],
+                       transformer.DECODE_GRAPHS["captures"] - before[1]["captures"],
+                       transformer.DECODE_GRAPHS["replays"] - before[1]["replays"]))
+    assert counts == [(2 * sites, 1, 4), (0, 0, 4)]
 
 
 # ------------------------------------------------------------- decode graphs
