@@ -122,6 +122,7 @@ def h100_peaks() -> tuple[float, dict]:
 
 SERVE_SHAPE = dict(b=4, s=1024, h=48, p=64, g=1, n=128, L=256)  # mamba2-780m prefill
 ZAMBA2_SSD_SHAPE = dict(b=4, s=1024, h=80, p=64, g=1, n=64, L=256)  # zamba2-2.7b forward and prefill
+GRANITE_SSD_SHAPE = dict(b=4, s=1024, h=128, p=64, g=1, n=128, L=256)  # granite-4.0-h-small prefill
 TEST_SHAPES = [  # tests/test_kernels.py's ssd sweep: G=2 and a single chunk among them
     dict(b=2, s=64, h=4, p=16, g=1, n=16, L=16),
     dict(b=1, s=128, h=4, p=32, g=2, n=32, L=32),
@@ -172,6 +173,10 @@ FAMILIES = (
 DA_SITE_SHAPE = dict(b=32, smax=1088, h=32, kh=32, d=224)
 DA_SITES = 13
 DA_POSITIONS = (288, 544, 1056)
+# granite-4.0-h-small.chat's decode: GQA, 32 q heads over 8 kv heads of 128, scores scaled by its
+# attention_multiplier 1/128, 4 attention layers a step, the same prompt lengths and max_len
+DA_GRANITE_SHAPE = dict(b=32, smax=1088, h=32, kh=8, d=128)
+DA_GRANITE_LAYERS = 4
 MERGE_BENCH_SHAPE = dict(g=64, t=512)  # benchmarks/bench_kernels.py's merge tiles
 # ~8.4M keys a side: about the L2 of a store with the paper's 128 MB L0, growth 4
 # and SD's 251-B mean KV (benchmarks/common.py)
@@ -306,9 +311,11 @@ def phase_ssd_kernel() -> dict:
             check_ssd(shape, dtype, seed=1 + i)
         check_ssd({**SERVE_SHAPE, "s": 1000}, dtype, seed=9)  # S % L != 0
         errs[dtype, "zamba2"] = check_ssd(ZAMBA2_SSD_SHAPE, dtype, seed=10)
+        errs[dtype, "granite"] = check_ssd(GRANITE_SSD_SHAPE, dtype, seed=11)
 
     timing = time_ssd(SERVE_SHAPE, stages=True)
     zamba2 = time_ssd(ZAMBA2_SSD_SHAPE)
+    granite = time_ssd(GRANITE_SSD_SHAPE)
     bf, f32 = timing[torch.bfloat16], timing[torch.float32]
     return {
         "name": "ssd_scan",
@@ -332,9 +339,10 @@ def phase_ssd_kernel() -> dict:
         "flops": bf["flops"],
         "f32": {"max_abs_err": errs[torch.float32], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
                 "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"]},
-        "zamba2_shape": {"shape": ZAMBA2_SSD_SHAPE,
-                         **{name: {"max_abs_err": errs[dtype, "zamba2"], **zamba2[dtype]}
-                            for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}},
+        **{f"{model}_shape": {"shape": shape,
+                              **{name: {"max_abs_err": errs[dtype, model], **times[dtype]}
+                                 for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}}
+           for model, shape, times in (("zamba2", ZAMBA2_SSD_SHAPE, zamba2), ("granite", GRANITE_SSD_SHAPE, granite))},
     }
 
 
@@ -508,22 +516,19 @@ def da_bound(b, h, kh, d, pos) -> tuple[float, int]:
     return nbytes / hbm * 1e3, nbytes
 
 
-@torch.inference_mode()
-def phase_decode_attention() -> dict:
-    """The decode-attention kernel at zamba2-7b-instruct.chat's site shape: checked against its
-    plain version at pos 1056 (the test's bars), then timed by CUDA events at each of
-    ``DA_POSITIONS`` beside its bound, the plain path (``ref``: the gather, einsums and masked
-    softmax of ``layers._attend_cache``) and ``scaled_dot_product_attention`` over rows 0..pos
-    (a yardstick only: the port never calls it).  ``step_ms`` is 13 sites' calls."""
+def da_at(sh: dict, scale: float, calls: int, seed: int) -> dict:
+    """The decode-attention kernel at one cache shape: checked against its plain version at the
+    last of ``DA_POSITIONS`` (the card tests' bars), then timed by CUDA events at each of them
+    beside its bound, the plain path (``ref``: the gather, einsums and masked softmax of
+    ``layers._attend_cache``) and ``scaled_dot_product_attention`` over rows 0..pos (a yardstick
+    only: the port never calls it).  ``step_ms`` is ``calls`` calls, a decode step's."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.models.layers import kv_head_map
 
-    sh = DA_SITE_SHAPE
     b, smax, h, kh, d = (sh[x] for x in ("b", "smax", "h", "kh", "d"))
-    q, k, v = da_inputs(b, smax, h, kh, d, 0)
+    q, k, v = da_inputs(b, smax, h, kh, d, seed)
     kvm = kv_head_map(h, kh).to("cuda")
-    scale = (d / 2) ** -0.5
     at = torch.tensor(DA_POSITIONS[-1], dtype=torch.int32, device="cuda")
     out = ops.decode_attention(q, k, v, kvm, at, scale=scale)
     ref = decode_attention_ref(q, k, v, kvm, at, scale=scale)
@@ -539,26 +544,37 @@ def phase_decode_attention() -> dict:
         at = torch.tensor(pos, dtype=torch.int32, device="cuda")
         qt = q.transpose(1, 2)                                        # (B, H, 1, D)
         kt, vt = (t[:, :pos + 1].transpose(1, 2) for t in (k, v))     # (B, K, pos + 1, D) views
-        ms = cuda_ms(lambda: ops.decode_attention(q, k, v, kvm, at, scale=scale), iters=5 * DA_SITES)
-        plain = cuda_ms(lambda: decode_attention_ref(q, k, v, kvm, at, scale=scale), iters=DA_SITES)
+        ms = cuda_ms(lambda: ops.decode_attention(q, k, v, kvm, at, scale=scale), iters=5 * calls)
+        plain = cuda_ms(lambda: decode_attention_ref(q, k, v, kvm, at, scale=scale), iters=calls)
         lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, scale=scale, enable_gqa=True), iters=5 * DA_SITES)
+            qt, kt, vt, scale=scale, enable_gqa=True), iters=5 * calls)
         bound_ms, nbytes = da_bound(b, h, kh, d, pos)
         by_pos[pos] = dict(ms=ms, bound_ms=bound_ms, roofline=bound_ms / ms, plain_ms=plain, library_ms=lib,
-                           bytes=nbytes, step_ms=DA_SITES * ms, step_bound_ms=DA_SITES * bound_ms,
-                           step_plain_ms=DA_SITES * plain, host_ms=host_ms(
-                               lambda: ops.decode_attention(q, k, v, kvm, at, scale=scale), iters=DA_SITES))
+                           bytes=nbytes, step_ms=calls * ms, step_bound_ms=calls * bound_ms,
+                           step_plain_ms=calls * plain, host_ms=host_ms(
+                               lambda: ops.decode_attention(q, k, v, kvm, at, scale=scale), iters=calls))
+    return {"shape": sh, "scale": scale, "max_abs_err": err, "max_abs_err_vs_f32": err32, "by_pos": by_pos}
+
+
+@torch.inference_mode()
+def phase_decode_attention() -> dict:
+    """The decode-attention kernel at zamba2-7b-instruct.chat's site shape (MHA, D 224, scale
+    (D / 2)^-0.5, 13 sites a step) and at granite-4.0-h-small.chat's attention layers (GQA 32
+    over 8, D 128, scale 1/128, 4 layers a step), each by ``da_at``."""
+    site = da_at(DA_SITE_SHAPE, (DA_SITE_SHAPE["d"] / 2) ** -0.5, DA_SITES, seed=0)
+    granite = da_at(DA_GRANITE_SHAPE, 1 / DA_GRANITE_SHAPE["d"], DA_GRANITE_LAYERS, seed=1)
     return {
         "name": "decode_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "replaces": None,  # no TPU kernel: the reference decodes through plain jnp
         "launches": None,  # filled from the main paths
-        "shape": sh,
+        "shape": site["shape"],
         "dtype": "bfloat16",
-        "max_abs_err": err,
-        "max_abs_err_vs_f32": err32,
-        "by_pos": by_pos,
+        "max_abs_err": site["max_abs_err"],
+        "max_abs_err_vs_f32": site["max_abs_err_vs_f32"],
+        "by_pos": site["by_pos"],
+        "granite_shape": granite,
         "bound_by": "bytes",
         "design": "two passes: chunks of 64 rows per (kv head, batch row) in f32, then a merge in chunk order",
         "nvidia_smi": smi(),

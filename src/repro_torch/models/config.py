@@ -1,8 +1,9 @@
 """Architecture configuration shared by every model family.
 
 One dataclass covers the whole assigned pool (dense GQA, MoE, SSM, hybrid,
-encoder-decoder, VLM backbone) and the port's ``zamba2`` family, the published
-Zamba2 (arXiv:2411.15242; ``models/transformer.py``).  Family-specific fields
+encoder-decoder, VLM backbone) and the port's two published hybrids: ``zamba2``,
+Zamba2 (arXiv:2411.15242), and ``granitemoehybrid``, IBM Granite 4.0-H (Mamba2 and
+NoPE GQA mixers, each followed by a dropless MoE; ``models/transformer.py``).  Family-specific fields
 are ignored by other families; the fields marked port-only have no
 counterpart in the reference's config, and their defaults leave every other
 family as the reference builds it.  ``reduced()`` derives the small
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "hybrid", "zamba2", "encdec", "vlm"]
+Family = Literal["dense", "moe", "ssm", "hybrid", "zamba2", "granitemoehybrid", "encdec", "vlm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +42,9 @@ class ArchConfig:
     top_k: int = 0
     expert_d_ff: int = 0
     capacity_factor: float = 1.25
+    # granitemoehybrid, one chip's share of an expert-parallel layer (port-only)
+    experts_held: int = 0             # experts held here, of the router's num_experts (0: all)
+    expert_first: int = 0             # the first held expert's index among the router's outputs
     # ssm (mamba2 / SSD)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -50,12 +54,18 @@ class ArchConfig:
     # hybrid (zamba2-style shared attention block)
     attn_every: int = 0               # apply the shared attn block every k ssm layers
     # zamba2, the published form (port-only)
-    hybrid_layer_ids: tuple[int, ...] = ()  # Mamba2 layers whose input a shared-block site adds to
+    hybrid_layer_ids: tuple[int, ...] = ()  # Mamba2 layers whose input a shared-block site adds to;
+                                      # granitemoehybrid: its attention layers (the rest are Mamba2)
     num_mem_blocks: int = 0           # shared blocks, taken in turn by the sites
     adapter_rank: int = 0             # each site's LoRA rank on the block's MLP input projection
     mem_rope: bool = False            # RoPE in the shared blocks' attention
     ssm_ngroups: int = 1              # B/C groups: head h reads group h // (heads / groups)
     ssm_dt_min: float = 0.0           # dt floor after the softplus (0: none)
+    # granitemoehybrid's scalar multipliers (port-only; the defaults change nothing)
+    embedding_multiplier: float = 1.0  # the token embedding is scaled by it
+    residual_multiplier: float = 1.0  # each mixer's and each MoE's output is scaled by it before the residual add
+    attention_multiplier: float = 0.0  # the scores' scale (0: the family's rule, ``layers.softmax_scale``)
+    logits_scaling: float = 1.0       # the head's logits are divided by it
     # encoder-decoder (whisper-style)
     encoder_layers: int = 0
     encoder_frames: int = 1500        # precomputed frame embeddings (stub frontend)
@@ -75,6 +85,9 @@ class ArchConfig:
     def __post_init__(self):
         # a configuration file gives the sites as a list; the config is frozen and hashable
         object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
+        if self.experts_held and self.expert_first + self.experts_held > self.num_experts:
+            raise ValueError(f"experts {self.expert_first}..{self.expert_first + self.experts_held - 1} held "
+                             f"of a router over {self.num_experts}")
 
     # ---------------------------------------------------------------- derived
     @property
@@ -99,6 +112,10 @@ class ArchConfig:
     @property
     def ssm_groups(self) -> int:
         return self.ssm_ngroups
+
+    @property
+    def num_experts_held(self) -> int:
+        return self.experts_held or self.num_experts
 
     def has_attention(self) -> bool:
         return self.family != "ssm"
@@ -147,6 +164,13 @@ class ArchConfig:
             site = self.adapter_rank * (d + 2 * self.d_ff) + d * d  # LoRA and the site's linear
             return (self.num_layers * mamba + self.num_mem_blocks * block + len(self.hybrid_layer_ids) * site
                     + emb + d)
+        if self.family == "granitemoehybrid":  # exact: every leaf the program holds, its own experts alone
+            di, h, gn, w = self.ssm_d_inner, self.ssm_num_heads, self.ssm_groups * self.ssm_state, self.ssm_conv_width
+            mamba = d * (2 * di + 2 * gn + h) + di * d + (w + 1) * (di + 2 * gn) + 3 * h + di
+            attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+            moe = d * self.num_experts + 3 * d * self.expert_d_ff * (self.num_experts_held + self.num_shared_experts)
+            na = len(self.hybrid_layer_ids)
+            return (self.num_layers - na) * mamba + na * attn + self.num_layers * (moe + 2 * d) + emb + d
         raise ValueError(self.family)
 
     def active_param_count(self) -> int:
@@ -163,7 +187,9 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """Small same-family config for CPU smoke tests.  A zamba2 config keeps its blocks, its
         groups and three sites that use both blocks, over 8 layers; its heads stay MHA, each
-        of 2 * d_model / heads, as the published attention derives them."""
+        of 2 * d_model / heads, as the published attention derives them.  A granitemoehybrid
+        config keeps 4 layers with attention at layer 1, every expert of 8 held, its
+        multipliers and a shared expert twice an expert's width."""
         changes = dict(
             name=self.name + "-reduced",
             num_layers=min(self.num_layers, 2 if self.family != "hybrid" else 4),
@@ -192,4 +218,7 @@ class ArchConfig:
             heads = changes["num_heads"]
             changes.update(num_layers=min(self.num_layers, 8), hybrid_layer_ids=(1, 4, 6), num_kv_heads=heads,
                            head_dim=2 * changes["d_model"] // heads, adapter_rank=min(self.adapter_rank, 8))
+        if self.family == "granitemoehybrid":
+            changes.update(num_layers=min(self.num_layers, 4), hybrid_layer_ids=(1,), experts_held=0, expert_first=0,
+                           num_shared_experts=self.num_shared_experts)
         return dataclasses.replace(self, **changes)

@@ -275,8 +275,11 @@ def kv_map(cfg: ArchConfig, g: tp.Group | None) -> torch.Tensor:
 
 
 def softmax_scale(cfg: ArchConfig, head_dim: int) -> float:
-    """The scores' scale: head_dim^-0.5, and (head_dim / 2)^-0.5 in zamba2's shared blocks, as the
-    published attention sets it (its heads are twice as wide as the stream's share)."""
+    """The scores' scale: ``cfg.attention_multiplier`` where it is set (granitemoehybrid's 1 / head_dim);
+    else head_dim^-0.5, and (head_dim / 2)^-0.5 in zamba2's shared blocks, as the published attention
+    sets it (its heads are twice as wide as the stream's share)."""
+    if cfg.attention_multiplier:
+        return cfg.attention_multiplier
     return (head_dim / 2) ** -0.5 if cfg.family == "zamba2" else head_dim**-0.5
 
 
@@ -328,6 +331,9 @@ def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, positions: torch.T
         if cfg.family == "zamba2":
             raise ValueError("attention_impl='flash' scales scores by head_dim^-0.5; zamba2's shared blocks "
                              "take (head_dim / 2)^-0.5: use attention_impl='xla'")
+        if cfg.attention_multiplier:
+            raise ValueError(f"attention_impl='flash' scales scores by head_dim^-0.5, not the attention_multiplier "
+                             f"{cfg.attention_multiplier}: use attention_impl='xla'")
         _check_flash_heads(cfg, kv_map(cfg, p.tp_group), k.shape[2])
         out = fa_ops.flash_attention(q, k, v, window=cfg.sliding_window)
     else:
@@ -590,16 +596,21 @@ def embedding_init(cfg: ArchConfig, generator: torch.Generator, device) -> Embed
 
 
 def embed(cfg: ArchConfig, p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype, times ``cfg.embedding_multiplier`` where it is not 1."""
     if p.tp_group is not None:
-        return tp.embed_lookup(p.embed, tokens, _dtype(cfg.compute_dtype), p.tp_group)
-    return p.embed[tokens].to(_dtype(cfg.compute_dtype))
+        x = tp.embed_lookup(p.embed, tokens, _dtype(cfg.compute_dtype), p.tp_group)
+    else:
+        x = p.embed[tokens].to(_dtype(cfg.compute_dtype))
+    return x * cfg.embedding_multiplier if cfg.embedding_multiplier != 1 else x
 
 
 def unembed(cfg: ArchConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
-    """Logits over the vocabulary; under TP over this rank's V/tp columns (``vocab_logits`` gathers them)."""
+    """Logits over the vocabulary, divided by ``cfg.logits_scaling`` where it is not 1; under TP over
+    this rank's V/tp columns (``vocab_logits`` gathers them)."""
     cd = _dtype(cfg.compute_dtype)
     w = p.unembed if p.unembed is not None else p.embed.T
-    return tp.copy(x.to(cd), p.tp_group) @ w.to(cd)
+    logits = tp.copy(x.to(cd), p.tp_group) @ w.to(cd)
+    return logits / cfg.logits_scaling if cfg.logits_scaling != 1 else logits
 
 
 def vocab_logits(cfg: ArchConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:

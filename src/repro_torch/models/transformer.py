@@ -1,4 +1,4 @@
-"""Decoder-only LM composition for the dense / MoE / SSM / hybrid / zamba2 / VLM families.
+"""Decoder-only LM composition for the dense / MoE / SSM / hybrid / zamba2 / granitemoehybrid / VLM families.
 
 ``init_params`` returns an ``nn.Module`` (``LM``) whose layers sit in an
 ``nn.ModuleList``; the functions take it where the reference takes its param
@@ -16,8 +16,10 @@ the FFN; the ssm, hybrid and zamba2 families run a loop of Mamba2 layers, into
 which the hybrid (zamba2-style) family puts ONE weight-shared attention block
 (``shared_block``) after every ``attn_every``-th layer, and zamba2 its sites
 before theirs.  Each shared-block site has its own K/V row (weights shared,
-caches not).  The three steps differ only in the two hooks they hand the walk:
-how attention runs at a K/V row, and how the Mamba2 mixer runs.
+caches not).  A granitemoehybrid layer is a mixer, Mamba2 or (at the layers
+``hybrid_layer_ids`` names) attention, then the MoE.  The three steps differ
+only in the two hooks they hand the walk: how attention runs at a K/V row, and
+how the Mamba2 mixer runs at its row of the SSM cache.
 
 The zamba2 family is the published Zamba2 (arXiv:2411.15242; transformers'
 ``modeling_zamba2.py``), which the port alone holds.  Its Mamba2 layer i
@@ -28,11 +30,24 @@ carried to every site): attention over the 2 x d_model input (RoPE where
 ``mem_rope``, scores scaled by (head_dim / 2)^-0.5), ``rmsnorm``, then a
 GELU-gated MLP whose input projection adds the site's own LoRA; the site's own
 linear then maps the block's output to t_j.  The block has no residual of its
-own.  The cache keeps the reference's stacked layouts:
+own.
+
+The granitemoehybrid family is IBM Granite 4.0-H (transformers'
+``modeling_granitemoehybrid.py``), which the port alone holds.  Layer i computes
+``x + m * mixer(rmsnorm(x))``, the mixer NoPE attention (GQA, scores scaled by
+``attention_multiplier``) at the layers ``hybrid_layer_ids`` names and Mamba2
+elsewhere, then ``x + m * (moe(u) + shared(u))`` with u = rmsnorm(x): the
+dropless MoE over the experts held here and the shared expert
+(``moe.moe_dropless``); m is ``residual_multiplier``.  The embedding is scaled
+by ``embedding_multiplier`` and the logits divided by ``logits_scaling``
+(``layers.embed``, ``layers.unembed``).  The cache keeps the reference's stacked
+layouts:
 
 - ssm: ``ssm.state`` (layers, B, H, P, N) float32, ``ssm.conv``
   (layers, B, conv_width-1, conv_dim) in the cache dtype, ``pos``;
 - hybrid and zamba2: the ssm leaves, and ``k`` and ``v`` (sites, B, max_len, K, hd);
+- granitemoehybrid: the ssm leaves over its Mamba2 layers alone, and ``k`` and
+  ``v`` over its attention layers alone (``layer_rows`` gives each layer's rows);
 - dense, moe and vlm: ``k`` and ``v`` (layers, B, max_len, K, hd), ``pos``.
 
 With ``attention_impl="flash"`` the full-sequence attention of ``forward``
@@ -49,7 +64,7 @@ rank, and leaves it before the unembedding.  In a sharded decode the K/V
 leaves may hold the rank's shard of the sequence (``Attention.seq_split``),
 while ``pos`` stays global.
 
-``DecodeGraphs`` replays the ssm, hybrid and zamba2 families' ``decode_step``
+``DecodeGraphs`` replays the Mamba2-loop families' ``decode_step``
 on the card as a captured CUDA graph, where ``decode_graphable`` allows it;
 ``ServeEngine`` owns one.
 """
@@ -86,7 +101,7 @@ from .layers import (
     unembed,
     vocab_logits,
 )
-from .moe import moe_apply, moe_init
+from .moe import moe_apply, moe_dropless, moe_init
 from .ssm import Mamba2Mixer, ssm_init_cache
 
 
@@ -151,7 +166,25 @@ class Site(nn.Module):
         self.linear = _normal((d, d), d**-0.5, dt, generator, device)
 
 
-_MAMBA2_LOOP = ("ssm", "hybrid", "zamba2")  # the families that walk a loop of Mamba2 layers
+class GraniteLayer(nn.Module):
+    """A granitemoehybrid layer: the norm before its mixer, the mixer (``attn`` at the layers
+    ``hybrid_layer_ids`` names, else ``ssm``), the norm before the MoE, and the MoE, which holds
+    its share of the experts and the shared expert."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device, *, attention: bool):
+        super().__init__()
+        dt = _dtype(cfg.param_dtype)
+        self.norm = rmsnorm_init(cfg.d_model, dt, device)
+        if attention:
+            self.attn = attention_init(cfg, generator, device)
+        else:
+            self.ssm = Mamba2Mixer(cfg, generator, device)
+        self.ln2 = rmsnorm_init(cfg.d_model, dt, device)
+        self.moe = moe_init(cfg, generator, device)
+
+
+# the families that walk a loop of Mamba2 layers, with state in their cache and `pos` on the device
+_MAMBA2_LOOP = ("ssm", "hybrid", "zamba2", "granitemoehybrid")
 
 _LAYER = {
     "ssm": Mamba2Layer,
@@ -160,7 +193,14 @@ _LAYER = {
     "dense": DenseLayer,
     "vlm": DenseLayer,
     "moe": functools.partial(DenseLayer, moe=True),
+    "granitemoehybrid": GraniteLayer,
 }
+
+
+def _make_layer(cfg: ArchConfig, generator: torch.Generator, device, i: int) -> nn.Module:
+    if cfg.family == "granitemoehybrid":
+        return GraniteLayer(cfg, generator, device, attention=layer_rows(cfg)[i][1] is None)
+    return _LAYER[cfg.family](cfg, generator, device)
 
 
 class LM(nn.Module):
@@ -171,8 +211,7 @@ class LM(nn.Module):
         self.cfg = cfg
         self.embedding = embedding_init(cfg, generator, device)
         self.final_norm = rmsnorm_init(cfg.d_model, _dtype(cfg.param_dtype), device)
-        layer = _LAYER[cfg.family]
-        self.layers = nn.ModuleList(layer(cfg, generator, device) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(_make_layer(cfg, generator, device, i) for i in range(cfg.num_layers))
         if cfg.family == "hybrid":
             self.shared_block = DenseLayer(cfg, generator, device)
         if cfg.family == "zamba2":
@@ -197,26 +236,34 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def _site_layers(cfg: ArchConfig) -> range | tuple[int, ...]:
-    """The Mamba2 layers that hold a shared-block site, in site (K/V row) order: the hybrid's
-    follow each layer i with (i + 1) % attn_every == 0; zamba2's add to the input of each
-    layer in ``hybrid_layer_ids``.  The other families have none."""
-    if cfg.family == "hybrid":
-        return range(cfg.attn_every - 1, cfg.num_layers, cfg.attn_every)
-    if cfg.family == "zamba2":
-        return cfg.hybrid_layer_ids
-    return ()
-
-
-def _site(cfg: ArchConfig, i: int) -> int | None:
-    """The shared-block site at Mamba2 layer ``i``, or None."""
-    layers = _site_layers(cfg)
-    return layers.index(i) if i in layers else None
+@functools.lru_cache(maxsize=None)
+def layer_rows(cfg: ArchConfig) -> tuple[tuple[int | None, int | None], ...]:
+    """Each layer's (K/V row, SSM row) in the cache, None where it holds no such row: the one
+    place that decides which layer keeps which state.  A dense, moe or vlm layer i holds K/V
+    row i.  A Mamba2 layer i of the ssm, hybrid and zamba2 families holds SSM row i, and the
+    hybrids' shared-block sites number the K/V rows: the hybrid's follow each layer i with
+    (i + 1) % attn_every == 0, zamba2's add to the input of each layer in ``hybrid_layer_ids``.
+    granitemoehybrid's layers in ``hybrid_layer_ids`` are its attention layers, each with a K/V
+    row and no SSM row; its Mamba2 layers number the SSM rows in turn."""
+    n = cfg.num_layers
+    if cfg.family not in _MAMBA2_LOOP:
+        return tuple((i, None) for i in range(n))
+    sites = range(cfg.attn_every - 1, n, cfg.attn_every) if cfg.family == "hybrid" else cfg.hybrid_layer_ids
+    kv = {layer: j for j, layer in enumerate(sites)}
+    if cfg.family != "granitemoehybrid":
+        return tuple((kv.get(i), i) for i in range(n))
+    mamba = iter(range(n))
+    return tuple((kv[i], None) if i in kv else (None, next(mamba)) for i in range(n))
 
 
 def kv_rows(cfg: ArchConfig) -> int:
     """Rows of the K/V cache: one per attention layer, per site in the hybrid families, none for ssm."""
-    return len(_site_layers(cfg)) if cfg.family in _MAMBA2_LOOP else cfg.num_layers
+    return sum(kv is not None for kv, _ in layer_rows(cfg))
+
+
+def ssm_rows(cfg: ArchConfig) -> int:
+    """Rows of the stacked SSM cache: one per Mamba2 layer."""
+    return sum(r is not None for _, r in layer_rows(cfg))
 
 
 def _block(cfg: ArchConfig, lp: DenseLayer, x: torch.Tensor, row: int, attend) -> tuple[torch.Tensor, torch.Tensor]:
@@ -256,19 +303,38 @@ def remat(cfg: ArchConfig, body, *args):
     return body(*args)
 
 
+def _granite_layer(cfg: ArchConfig, lp: GraniteLayer, i: int, x: torch.Tensor, attend, mix):
+    """granitemoehybrid's layer ``i``: its mixer, attention without RoPE at K/V row j where the layer
+    has one, else Mamba2 at its SSM row; then the MoE with the shared expert, each output scaled by
+    ``residual_multiplier`` before its residual add.  Returns (x out, the Mamba2 layer's new state,
+    or None)."""
+    (j, r), m, new = layer_rows(cfg)[i], cfg.residual_multiplier, None
+    if r is not None:
+        with span("model.mamba2", ("layer", i)):
+            h, new = mix(r, lp.ssm, rmsnorm(lp.norm, x, cfg.norm_eps))
+            x = x + h * m
+    else:
+        with span("model.attention", ("row", j)):
+            x = x + attend(lp.attn, rmsnorm(lp.norm, x, cfg.norm_eps), j, False) * m
+    with span("model.moe", ("layer", i)):
+        return x + moe_dropless(cfg, lp.moe, rmsnorm(lp.ln2, x, cfg.norm_eps)) * m, new
+
+
 def _layer(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, e: torch.Tensor, attend, mix):
     """The reference's scan body: layer ``i`` and what sits at it, in the module docstring's
     order (``e``: the token embeddings, for zamba2's sites).  Returns (x out, what the layer
     leaves: an attention layer's MoE aux loss, a Mamba2 layer's new state as ``mix`` gives it)."""
     lp = params.layers[i]
+    if cfg.family == "granitemoehybrid":
+        return _granite_layer(cfg, lp, i, x, attend, mix)
     if cfg.family not in _MAMBA2_LOOP:
         return _block(cfg, lp, x, i, attend)
-    j = _site(cfg, i)
+    j, r = layer_rows(cfg)[i]
     xin = x
     if cfg.family == "zamba2" and j is not None:
         xin = x + _shared_block(cfg, params, j, x, e, attend)
     with span("model.mamba2", ("layer", i)):
-        h, new = mix(i, lp.ssm, rmsnorm(lp.norm, xin, cfg.norm_eps))
+        h, new = mix(r, lp.ssm, rmsnorm(lp.norm, xin, cfg.norm_eps))
         x = x + h
     if cfg.family == "hybrid" and j is not None:
         x, _ = _block(cfg, params.shared_block, x, j, attend)
@@ -280,8 +346,9 @@ def _walk(cfg: ArchConfig, params: LM, x: torch.Tensor, attend, mix) -> tuple[to
     ``decode_step``: ``_layer`` for each layer, one ``remat`` body a layer (inert in the two
     inference steps).  The steps differ only in the two hooks they pass:
     ``attend(attn, u, row, rope)``, attention of ``u`` at K/V row ``row`` (RoPE unless
-    ``rope`` is off), and ``mix(i, mixer, u)``, Mamba2 layer i's mixer: (its output, its new
-    state or None).  Returns the stream and what each layer left (``_layer``)."""
+    ``rope`` is off), and ``mix(r, mixer, u)``, the mixer of the Mamba2 layer at SSM cache row r
+    (``layer_rows``): (its output, its new state or None).  Returns
+    the stream and what each layer left (``_layer``)."""
     e, left = x, []
     for i in range(len(params.layers)):
         x, out = remat(cfg, _layer, cfg, params, i, x, e, attend, mix)
@@ -359,7 +426,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
     cache: dict[str, Any] = _kv_cache(cfg, batch, max_len, dtype, dev)
     if cfg.family in _MAMBA2_LOOP:
         caches = ssm_init_cache(cfg, batch, dtype, dev)
-        cache["ssm"] = {k: v.expand(cfg.num_layers, *v.shape).clone() for k, v in caches.items()}
+        cache["ssm"] = {k: v.expand(ssm_rows(cfg), *v.shape).clone() for k, v in caches.items()}
     cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
     return cache
 
@@ -369,15 +436,16 @@ def _pos_on_device(cfg: ArchConfig, params: LM) -> bool:
     """Whether ``decode_step`` hands attention ``pos`` as the cache's device tensor: in the
     hybrid families, unless a sharded decode splits the K/V's sequence (``seq_split``, which
     takes an int); dense, moe and vlm read it on the host."""
-    if cfg.family == "zamba2":
-        return True
-    return cfg.family == "hybrid" and params.shared_block.attn.seq_split is None
+    if cfg.family == "hybrid":
+        return params.shared_block.attn.seq_split is None
+    return cfg.family in _MAMBA2_LOOP
 
 
-def _stack_states(news: list[dict[str, torch.Tensor]], into: dict) -> dict[str, torch.Tensor]:
-    """The Mamba2 layers' new states and conv tails as the cache's stacks, into ``into``'s tensors if it has them."""
+def _stack_states(news: list, into: dict) -> dict[str, torch.Tensor]:
+    """The Mamba2 layers' new states and conv tails as the cache's stacks, into ``into``'s tensors if it has them;
+    the layers that leave None (granitemoehybrid's attention) hold no row."""
     with span("model.new_cache"):
-        return {k: torch.stack([new[k] for new in news], out=into.get(k)) for k in ("state", "conv")}
+        return {k: torch.stack([new[k] for new in news if new is not None], out=into.get(k)) for k in ("state", "conv")}
 
 
 @torch.inference_mode()
@@ -393,7 +461,7 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
     step, as the ssm's, reads nothing back to the host; the other families read
     it as an int.
 
-    ``out`` (the ssm and both hybrid families) is a cache of the same structure
+    ``out`` (the Mamba2-loop families) is a cache of the same structure
     and shapes into whose tensors the new cache is written and returned: the
     same work and the same bits as the call that allocates.  The old K/V are
     copied into ``out``'s first.  ``out`` may be the input cache itself, which is
@@ -402,7 +470,8 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
     ``pos`` moves on last), as ``DecodeGraphs`` replays it.
     """
     if out is not None and cfg.family not in _MAMBA2_LOOP:
-        raise ValueError(f"decode_step: out= takes an ssm, hybrid or zamba2 cache, not the {cfg.family} family's")
+        raise ValueError(f"decode_step: out= takes an ssm, hybrid or zamba2 cache or a granitemoehybrid one, "
+                         f"not the {cfg.family} family's")
     out = out or {}
     with span("model.decode_step"):
         _check(cfg, params)
@@ -484,7 +553,7 @@ DECODE_GRAPHS = {"captures": 0, "replays": 0}  # graphs captured and replayed by
 
 def decode_graphable(cfg: ArchConfig, params: nn.Module) -> bool:
     """Whether ``DecodeGraphs`` may replay ``decode_step`` for ``params``: they sit on the card, the
-    family's step reads nothing back to the host (the ssm's and the hybrids', which keep ``pos`` on
+    family's step reads nothing back to the host (the Mamba2-loop families', which keep ``pos`` on
     the device; dense, moe and vlm read ``int(cache["pos"])``, which a captured graph cannot), and no
     module has a ``tp_group`` (a sharded decode's collectives stay eager)."""
     return (cfg.family in _MAMBA2_LOOP and params.embedding.embed.device.type == "cuda"

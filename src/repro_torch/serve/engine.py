@@ -4,8 +4,8 @@ Uses the model's prefill/decode steps and the HybridCacheManager for
 placement decisions (a token's bytes there are its K and V over the cache's
 rows).  The engine runs on the card unless the caller passes
 ``device="cpu"``; its params must already sit on that device.  Where
-``transformer.decode_graphable`` accepts them (an ssm, hybrid or zamba2 model
-on the card, not tensor-parallel) each decode step is a replayed CUDA graph
+``transformer.decode_graphable`` accepts them (an ssm, hybrid, zamba2 or
+granitemoehybrid model on the card, not tensor-parallel) each decode step is a replayed CUDA graph
 (``transformer.DecodeGraphs``, the engine's own, which refuses other params);
 every other decode (dense, moe, vlm, encdec, the CPU) runs ``decode_step``
 eagerly.
@@ -42,8 +42,10 @@ class ServeEngine:
         self.params = params
         self.max_len = max_len
         self.batch_size = batch_size
-        # K and V of a token in bf16 over the cache's rows: zamba2's are its sites (``transformer.kv_rows``)
-        rows = transformer.kv_rows(cfg) if cfg.family == "zamba2" else cfg.num_layers
+        # K and V of a token in bf16 over the cache's K/V rows (``transformer.layer_rows``): zamba2's
+        # sites, granitemoehybrid's attention layers; the ssm and hybrid families count every layer, as
+        # the reference's engine counts them
+        rows = cfg.num_layers if cfg.family in ("ssm", "hybrid") else transformer.kv_rows(cfg)
         bytes_per_token = 2 * max(cfg.num_kv_heads, 1) * cfg.resolved_head_dim * 2 * rows
         self.cache_mgr = HybridCacheManager(CacheConfig(
             bytes_per_token=bytes_per_token, slab_tokens=min(max_len // 2, 512),

@@ -63,6 +63,7 @@ def _check(out, ref, dtype):
         (4, 1024, 48, 64, 1, 128, 256),  # mamba2-780m serving shape
         (4, 1024, 80, 64, 1, 64, 256),  # zamba2-2.7b's Mamba2 layers at 4 x 1024 tokens
         (2, 1024, 112, 64, 2, 64, 256),  # zamba2-7b-instruct's: 112 heads over two B/C groups
+        (2, 1024, 128, 64, 1, 128, 256),  # granite-4.0-h-small's: 128 heads, state 128
         (2, 64, 4, 16, 1, 16, 16),
         (1, 128, 4, 32, 2, 32, 32),
         (2, 256, 8, 64, 1, 64, 64),
@@ -429,6 +430,7 @@ CHUNK = da_kernel.CHUNK
     [(32, 1088, 32, 32, 224, 0, 32, 0, pos) for pos in (0, CHUNK - 1, CHUNK, 1056, 1087)]  # a zamba2 site
     + [(32, 1088, 32, 32, 224, 0, 32, 100, 1056)]                                          # with a window
     + [(4, 300, 8, 2, 128, 0, 2, w, pos) for w in (0, 50) for pos in (0, CHUNK - 1, CHUNK, 299)]  # grouped
+    + [(32, 1088, 32, 8, 128, 0, 8, 0, pos) for pos in (0, CHUNK, 1056, 1087)]  # a granite-4.0-h-small layer
     + [
         (2, 200, 8, 3, 64, 6, 3, 0, 130),     # padded q heads, clamped to the last kv head
         (2, 150, 32, 2, 64, 0, 2, 0, 149),    # 16 q heads a kv head: two rounds over the rows
@@ -513,8 +515,9 @@ def test_replayed_zamba2_decode_launches_the_kernel_at_capture_only(cuda):
 
 # ------------------------------------------------------------- decode graphs
 def _graph_engine(cuda, compute_dtype="float32", arch="mamba2-780m"):
-    """A reduced model on the card (the registry's ``arch``, or with ``"zamba2"`` the tiny zamba2 of
-    ``test_torch_zamba2.py``, its params in ``compute_dtype`` too) and a maker of engines over it."""
+    """A reduced model on the card (the registry's ``arch``, or with ``"zamba2"`` or ``"granite"`` the tiny
+    model of ``test_torch_zamba2.py`` or ``test_torch_granite.py``, its params in ``compute_dtype`` too) and
+    a maker of engines over it."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
@@ -522,10 +525,9 @@ def _graph_engine(cuda, compute_dtype="float32", arch="mamba2-780m"):
     from repro_torch.models.config import ArchConfig
     from repro_torch.serve.engine import ServeEngine
 
-    if arch == "zamba2":
-        from test_torch_zamba2 import ARCH
-
-        cfg = ArchConfig(**dict(ARCH, param_dtype=compute_dtype, compute_dtype=compute_dtype))
+    if arch in ("zamba2", "granite"):
+        tiny = __import__(f"test_torch_{arch}")
+        cfg = ArchConfig(**dict(tiny.ARCH, param_dtype=compute_dtype, compute_dtype=compute_dtype))
     else:
         cfg = dataclasses.replace(ARCHS[arch].reduced(), compute_dtype=compute_dtype)
     params = transformer.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
@@ -533,8 +535,8 @@ def _graph_engine(cuda, compute_dtype="float32", arch="mamba2-780m"):
 
 
 @pytest.mark.parametrize("arch,compute_dtype", [("mamba2-780m", "float32"), ("mamba2-780m", "bfloat16"),
-                                                ("zamba2", "bfloat16")],
-                         ids=["float32", "bfloat16", "zamba2-bfloat16"])
+                                                ("zamba2", "bfloat16"), ("granite", "bfloat16")],
+                         ids=["float32", "bfloat16", "zamba2-bfloat16", "granite-bfloat16"])
 def test_served_by_replayed_graphs_is_the_eager_decode_bit_for_bit(cuda, arch, compute_dtype):
     """Three batches (two of 4 requests with other prompts, then one of 2) through an engine
     whose decode replays captured graphs: each step's logits and cache, and so every served
@@ -670,3 +672,42 @@ def test_zamba2_site_at_published_widths_matches_reference(cuda):
     print(f"zamba2 site bf16 vs f32: max {float(diff.max()):.5f} mean {float(diff.mean()):.6f} "
           f"logit std {float(want.std()):.4f}")
     assert float(diff.max()) <= 0.15 and float(diff.mean()) <= 0.03
+
+
+# ------------------------------------------------------------------ granite
+def test_granite_at_published_widths_serves_a_batch_under_80_gb(cuda):
+    """granite-4.0-h-small as the benchmark builds it (bf16, 40 layers, 9 of 72 experts, the whole
+    vocabulary) serves one batch of the ``chat`` mix's longest prompts through ``ServeEngine``: 32 x 1024
+    tokens, decode replayed as a captured graph.  The card's peak stays under 80 GB, with room for the
+    graph's static cache beside the prefill's; each request gets its tokens, in the vocabulary."""
+    import gc
+    import json
+    from pathlib import Path
+
+    from bench.harness import program
+    from bench.reference import granite_moe_hybrid_lm as ref
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "bench" / "configs" / "granite-4.0-h-small.json").read_text())
+    arch = conf["arch"]
+    cfg = program.arch_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = program.build(cfg, ref, arch, 5, cuda)
+    eng = ServeEngine(cfg, params, max_len=1088, batch_size=32)
+    before = dict(transformer.DECODE_GRAPHS)
+    g = torch.Generator().manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (32, 1024), generator=g)
+    out = eng.run_batch([Request(i, prompts[i], max_new_tokens=4) for i in range(32)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"granite-4.0-h-small 32 x 1024, 4 new tokens: peak {peak} B")
+    assert all(len(r.output) == 4 and all(0 <= t < cfg.vocab_size for t in r.output) for r in out)
+    assert transformer.DECODE_GRAPHS["captures"] - before["captures"] == 1
+    assert transformer.DECODE_GRAPHS["replays"] - before["replays"] == 3
+    assert peak < 80e9
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()

@@ -135,12 +135,14 @@ def test_no_jax_or_repro_import_in_port(path):
 
 def test_archs_equal_reference():
     """The ten entries equal the reference's over the reference's fields; the port's own fields
-    (the zamba2 family's) hold their defaults in each entry and its reduced config."""
+    (the zamba2 and granitemoehybrid families') hold their defaults in each entry and its reduced config."""
     assert sorted(ARCHS) == sorted(JAX_ARCHS) and len(ARCHS) == 10
     shared = [f.name for f in dataclasses.fields(JAX_ARCHS["mamba2-780m"])]
     own = [f for f in dataclasses.fields(ARCHS["mamba2-780m"]) if f.name not in shared]
     assert sorted(f.name for f in own) == sorted(
-        ["hybrid_layer_ids", "num_mem_blocks", "adapter_rank", "mem_rope", "ssm_ngroups", "ssm_dt_min"])
+        ["hybrid_layer_ids", "num_mem_blocks", "adapter_rank", "mem_rope", "ssm_ngroups", "ssm_dt_min",
+         "experts_held", "expert_first", "embedding_multiplier", "residual_multiplier",
+         "attention_multiplier", "logits_scaling"])
 
     def over_reference(cfg):
         return {k: getattr(cfg, k) for k in shared}
