@@ -75,6 +75,12 @@ with random weights from seed 0, and checks that each went through its kernel:
   ``scaled_dot_product_attention`` (a yardstick only); zamba2-2.7b's serving
   launches it 9 times for each of the two decode steps run while its decode
   graph is captured, and not at all per replay;
+- ``ssm_decode`` at the three chat cells' Mamba2 layer shapes (batch 32: H 48
+  N 128, H 112 N 64 over 2 groups, H 128 N 128; P 64): its new state held to
+  the plain step bit for bit, then timed in place beside its bound and the
+  plain step with the stack's copy; mamba2-780m's and zamba2-2.7b's serving
+  launch it once a Mamba2 layer for each of the two steps run while the decode
+  graph is captured, and not at all per replay;
 - ``merge_tiles`` merges sorted tiles through ``merge_runs`` at the bench and
   compaction shapes, and ``merge_sorted_runs`` an L1 run into an L2 run;
 - the store engine (``repro_torch.api``, on the host as in the reference)
@@ -177,6 +183,10 @@ DA_POSITIONS = (288, 544, 1056)
 # attention_multiplier 1/128, 4 attention layers a step, the same prompt lengths and max_len
 DA_GRANITE_SHAPE = dict(b=32, smax=1088, h=32, kh=8, d=128)
 DA_GRANITE_LAYERS = 4
+# a chat cell's Mamba2 layer at batch 32, and the Mamba2 layers of its decode step
+SD_SHAPES = {"mamba2-780m.chat": (dict(b=32, h=48, g=1, p=64, n=128), 48),
+             "zamba2-7b-instruct.chat": (dict(b=32, h=112, g=2, p=64, n=64), 81),
+             "granite-4.0-h-small.chat": (dict(b=32, h=128, g=1, p=64, n=128), 36)}
 MERGE_BENCH_SHAPE = dict(g=64, t=512)  # benchmarks/bench_kernels.py's merge tiles
 # ~8.4M keys a side: about the L2 of a store with the paper's 128 MB L0, growth 4
 # and SD's 251-B mean KV (benchmarks/common.py)
@@ -577,6 +587,77 @@ def phase_decode_attention() -> dict:
         "granite_shape": granite,
         "bound_by": "bytes",
         "design": "two passes: chunks of 64 rows per (kv head, batch row) in f32, then a merge in chunk order",
+        "nvidia_smi": smi(),
+    }
+
+
+def sd_inputs(b, h, g, p, n, seed, dtype=torch.bfloat16):
+    """A layer's f32 state, and x, B and C sliced from one conv-output row as the Mixer's decode
+    slices them, dt after softplus, a as initialised."""
+    r = np.random.default_rng(seed)
+    state = torch.tensor(r.standard_normal((b, h, p, n)), dtype=torch.float32, device="cuda")
+    row = torch.tensor(r.standard_normal((b, h * p + 2 * g * n)), dtype=torch.float32, device="cuda").to(dtype)
+    x, bvec, cvec = row[:, :h * p].reshape(b, h, p), row[:, h * p:h * p + g * n].reshape(b, g, n), \
+        row[:, h * p + g * n:].reshape(b, g, n)
+    dt = torch.nn.functional.softplus(torch.tensor(r.standard_normal((b, h)), dtype=torch.float32, device="cuda"))
+    a = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device="cuda")))
+    return state, x, dt, a, bvec, cvec
+
+
+def sd_bound(b, h, g, p, n, elem: int = 2) -> tuple[float, int]:
+    """(bound_ms, bytes) of one layer's step: the f32 state read and written once, x read and y
+    written in the compute dtype, B and C a group, dt in f32 (``ssm_decode_roofline.serve``'s
+    count); bound by bytes (4 operations an element of 8 bytes)."""
+    nbytes = b * (2 * h * p * n * 4 + 2 * h * p * elem + 2 * g * n * elem + h * 4)
+    hbm, _ = h100_peaks()
+    return nbytes / hbm * 1e3, nbytes
+
+
+@torch.inference_mode()
+def phase_ssm_decode() -> dict:
+    """The Mamba2 decode-state kernel at the three chat cells' layer shapes (batch 32): its new
+    state held to the plain step bit for bit and its y to 1e-5 x sum |new * C|, then timed by CUDA
+    events in place (``ms``: the kernel's launcher; ``ops_ms``: ``ops.ssm_decode``, the model's call)
+    beside the bound and the plain step it replaced (``ssm_decode_ref`` and the stack's copy of the
+    new state into the cache); ``step_*`` are a decode step's Mamba2 layers."""
+    from repro_torch.kernels.ssm_decode import kernel, ops
+    from repro_torch.kernels.ssm_decode.ref import ssm_decode_ref
+
+    by_cell = {}
+    for cell, (sh, layers) in SD_SHAPES.items():
+        b, h, g, p, n = (sh[k] for k in ("b", "h", "g", "p", "n"))
+        state, x, dt, a, bvec, cvec = sd_inputs(b, h, g, p, n, seed=layers)
+        want, want_y = ssm_decode_ref(state, x, dt, a, bvec, cvec)
+        new, y = ops.ssm_decode(state.clone(), x, dt, a, bvec, cvec, out=torch.empty_like(state))
+        cvec_h = cvec.repeat_interleave(h // g, dim=1).double()
+        exact = torch.einsum("bhpn,bhn->bhp", want.double(), cvec_h)
+        scale = torch.einsum("bhpn,bhn->bhp", want.double().abs(), cvec_h.abs())
+        if not torch.equal(new, want) or not bool(((y.double() - exact).abs() <= 1e-5 * scale).all()):
+            fail(f"ssm_decode at {sh}: the new state differs from the plain step's bits, or y lies outside "
+                 f"1e-5 x sum |new * C| (max |y - exact| {float((y.double() - exact).abs().max())})")
+        err = float((y - want_y).abs().max())
+        del want, want_y, new, y, exact, scale, cvec_h
+        ms = cuda_ms(lambda: kernel.ssm_decode_cuda(state, x, dt, a, bvec, cvec, state), iters=5 * layers)
+        ops_ms = cuda_ms(lambda: ops.ssm_decode(state, x, dt, a, bvec, cvec, out=state), iters=5 * layers)
+        slot = torch.empty_like(state)
+        plain = cuda_ms(lambda: slot.copy_(ssm_decode_ref(state, x, dt, a, bvec, cvec)[0]), iters=layers)
+        bound_ms, nbytes = sd_bound(b, h, g, p, n)
+        by_cell[cell] = dict(shape=sh, layers=layers, ms=ms, ops_ms=ops_ms, bound_ms=bound_ms, roofline=bound_ms / ms,
+                             plain_ms=plain, bytes=nbytes, y_max_abs_diff_vs_plain=err, step_ms=layers * ms,
+                             step_ops_ms=layers * ops_ms, step_bound_ms=layers * bound_ms,
+                             step_plain_ms=layers * plain)
+        del state, x, dt, a, bvec, cvec, slot
+        torch.cuda.empty_cache()
+    return {
+        "name": "ssm_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_decode/csrc/ssm_decode.cu",
+        "replaces": None,  # no TPU kernel: the reference decodes through plain jnp (src/repro/models/ssm.py)
+        "launches": None,  # filled from the main paths
+        "dtype": "bfloat16 x, B, C; float32 state and y",
+        "by_cell": by_cell,
+        "bound_by": "bytes",
+        "design": "one pass over the f32 state per (P tile, head, batch row), new state in place, y by warp shuffles",
         "nvidia_smi": smi(),
     }
 
@@ -1080,6 +1161,7 @@ def serve_batches(cfg, params, prompt_lens=(1024, 1000), max_len: int = 2048) ->
 def phase_serve_mamba2() -> tuple[dict, int]:
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssm_decode import ops as sd_ops
     from repro_torch.models import get_model
 
     cfg = ARCHS["mamba2-780m"]
@@ -1087,11 +1169,14 @@ def phase_serve_mamba2() -> tuple[dict, int]:
     n_params = sum(p.numel() for p in params.parameters())
     model_check = check_model_f32(cfg, params)
 
-    ops.LAUNCHES = 0
+    ops.LAUNCHES = sd_ops.LAUNCHES = 0
     served = serve_batches(cfg, params)  # 4 chunks of 256; 1000 is padded to them
     launches = ops.LAUNCHES
     if launches != 2 * cfg.num_layers:
         fail(f"ssd_scan launched {launches} times in serving, expected {2 * cfg.num_layers}")
+    # both batches fill one decode graph's shape: captured once, a warm-up step and the captured one
+    if sd_ops.LAUNCHES != 2 * cfg.num_layers:
+        fail(f"ssm_decode launched {sd_ops.LAUNCHES} times in serving, expected {2 * cfg.num_layers}")
     # where a prefill's time goes, outside the counted run: 4 x 1024 tokens
     tokens = torch.as_tensor(
         np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 1024)), dtype=torch.int64, device="cuda"
@@ -1103,6 +1188,7 @@ def phase_serve_mamba2() -> tuple[dict, int]:
         "params": n_params,
         **served,
         "ssd_scan_launches": launches,
+        "ssm_decode_launches": sd_ops.LAUNCHES,
         "prefill_profile": prefill,
         "model_check_f32": model_check,
         "nvidia_smi": smi(),
@@ -1269,6 +1355,7 @@ def phase_hybrid() -> tuple[dict, dict, dict]:
     launches for each of the two decode steps run while the graph is captured)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.ssm_decode import ops as sd_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import get_model
@@ -1325,12 +1412,13 @@ def phase_hybrid() -> tuple[dict, dict, dict]:
         "model_check_f32": model_check,
     }
 
-    ssd_ops.LAUNCHES = fa_ops.LAUNCHES = da_ops.LAUNCHES = 0
+    ssd_ops.LAUNCHES = fa_ops.LAUNCHES = da_ops.LAUNCHES = sd_ops.LAUNCHES = 0
     served = serve_batches(cfg, params)
     serve_launches = {"ssd_scan": ssd_ops.LAUNCHES, "flash_attention": fa_ops.LAUNCHES,
-                      "decode_attention": da_ops.LAUNCHES}
+                      "decode_attention": da_ops.LAUNCHES, "ssm_decode": sd_ops.LAUNCHES}
     # both batches fill one decode graph's shape: captured once, a warm-up step and the captured one
-    want = {"ssd_scan": 2 * cfg.num_layers, "flash_attention": 0, "decode_attention": 2 * sites}
+    want = {"ssd_scan": 2 * cfg.num_layers, "flash_attention": 0, "decode_attention": 2 * sites,
+            "ssm_decode": 2 * cfg.num_layers}
     if serve_launches != want:
         fail(f"zamba2 serving launched {serve_launches}, expected {want}")
 
@@ -2279,11 +2367,12 @@ def tp_decode_batch(cfg) -> tuple[dict, int]:
 def tp_serve_run(cfg, mesh, batch: dict, max_len: int, steps: int, record: bool = True) -> dict:
     """``make_prefill_step``, then ``steps`` greedy ``make_decode_step`` calls over
     ``mesh``, from seed 0's params: the next tokens, each kernel's launches in the
-    prefill, the local shape and placements of the K/V leaf (and of whisper's
+    prefill and ``ssm_decode``'s over the decode steps, the local shape and placements of the K/V leaf (and of whisper's
     cross K/V) and the bytes of all of them, the host times and
     ``max_memory_allocated`` from the prefill on, the first step's logits and
     each step's margin between its two largest logits; with ``record``, each
     step's logits and every new cache leaf (each rank's whole view)."""
+    from repro_torch.kernels.ssm_decode import ops as sd_ops
     from repro_torch.models import encdec, get_model, transformer
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
@@ -2319,6 +2408,7 @@ def tp_serve_run(cfg, mesh, batch: dict, max_len: int, steps: int, record: bool 
            "pos": int(cache["pos"].to_local()), "steps": [], "decode_ms_host": [], "margins": []}
     tok = torch.argmax(tp_whole(logits)[:, -1].float(), dim=-1).to(torch.int32)[:, None]
     tokens = []
+    sd_before = sd_ops.LAUNCHES
     for _ in range(steps):
         seen.clear()
         t0 = time.perf_counter()
@@ -2337,6 +2427,7 @@ def tp_serve_run(cfg, mesh, batch: dict, max_len: int, steps: int, record: bool 
             out["steps"].append({"logits": seen[0].float().cpu(), "next": tok.cpu(),
                                  "cache": {k: tp_whole(v).cpu() for k, v in leaves.items() if k != "pos"}})
     out["tokens"] = torch.cat(tokens, dim=1).cpu()
+    out["decode_launches"] = {"ssm_decode": sd_ops.LAUNCHES - sd_before}
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return out
 
@@ -2526,6 +2617,7 @@ for name, layers in cs.TP_DECODE_TWINS:
                                          ("cross_k_local_1x1", ref.get("cross_k_local")),
                                          ("cross_k_placements", got.get("cross_k_placements"))) if v is not None},
                     "prefill_launches": got["prefill_launches"], "prefill_launches_1x1": ref["prefill_launches"],
+                    "decode_launches": got["decode_launches"], "decode_launches_1x1": ref["decode_launches"],
                     "heads": sorted(set(map(tuple, heads)))}
     del got, ref, pairs
     torch.cuda.empty_cache()
@@ -2812,6 +2904,8 @@ def phase_tp() -> dict:
                     or "cross_k_local" in d and (d["cross_k_placements"] != ["R", "S(2)"] or d["cross_k_local"] != [
                         *d["cross_k_local_1x1"][:2], tcfg.encoder_frames // TP_SIZE, *d["cross_k_local_1x1"][3:]]) \
                     or (d["prefill_launches"]["ssd_scan"][0] > 0) != bool(ssd) \
+                    or d["decode_launches"] != d["decode_launches_1x1"] \
+                    or (d["decode_launches"]["ssm_decode"] > 0) != bool(ssd) \
                     or any(h[1] != ssd for h in d["heads"]):
                 fail(f"phase_tp rank {r['rank']} f32 decode twin {name}: {d} (bar {TP_DECODE_BAR}, shard {half})")
         for key, serve in served.items():
@@ -2871,13 +2965,14 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.merge_runs import kernel as merge_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssm_decode import kernel as sd_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = smi()
     t0 = time.perf_counter()
     kernels = {"ssd_scan": ssd_kernel, "flash_attention": fa_kernel, "merge_runs": merge_kernel,
-               "decode_attention": da_kernel}
+               "decode_attention": da_kernel, "ssm_decode": sd_kernel}
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, all at once
         list(pool.map(lambda k: k.build(), kernels.values()))
     emit({"phase": "device", "nvidia_smi": card, "kind": torch.cuda.get_device_name(0),
@@ -2889,6 +2984,7 @@ def main() -> None:
     ssd_row = phase_ssd_kernel()
     fa_row = phase_fa_kernel()
     da_row = phase_decode_attention()
+    sd_row = phase_ssm_decode()
     merge_row = phase_merge_kernel()
     merge_path, merge_row["launches"] = phase_merge_path()
     emit(merge_path)
@@ -2953,7 +3049,13 @@ def main() -> None:
         row["bench_shape"] = bench_kernel_rows[name]
     da_row["launches_by_path"] = {"zamba2_serve": hybrid_launches["zamba2_serve"]["decode_attention"]}
     da_row["launches"] = sum(da_row["launches_by_path"].values())
-    emit({"kernels": [ssd_row, fa_row, merge_row, da_row]})
+    sd_row["launches_by_path"] = {"mamba2_serve": serve["ssm_decode_launches"],
+                                  "zamba2_serve": hybrid_launches["zamba2_serve"]["ssm_decode"],
+                                  **{f"tp_decode_twins_rank{rank}": sum(d["decode_launches"]["ssm_decode"]
+                                                                        for d in twins.values())
+                                     for rank, twins in tp["decode_twins"].items()}}
+    sd_row["launches"] = sum(sd_row["launches_by_path"].values())
+    emit({"kernels": [ssd_row, fa_row, merge_row, da_row, sd_row]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -17,7 +17,10 @@ and the decode state are float32.
 The chunked scan is ``repro_torch.kernels.ssd_scan.ops.ssd_scan``: the CUDA
 kernel on the card, the plain reference on the CPU.  Decode keeps a
 constant-size recurrent state (B, H, P, N) plus a (conv_width-1)-deep conv
-cache of the pre-conv (x|B|C) inputs.
+cache of the pre-conv (x|B|C) inputs; its state update and the contraction
+with C are ``repro_torch.kernels.ssm_decode.ops.ssm_decode``: on the card one
+pass of the CUDA kernel over the state, into the destination the caller
+names; on the CPU the plain reference.
 
 Under tensor parallelism (``tp_group`` set by a sharded step, ``sharding/tp.py``)
 the mixer holds its model-axis shards of ``wz``, ``wx``, ``wdt``, ``conv_x``,
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssd_scan import ops as ssd_ops
+from ..kernels.ssm_decode import ops as ssm_decode_ops
 from ..sharding import tp
 from .config import ArchConfig
 from .layers import _dtype, _normal, _param, rmsnorm_grouped, rmsnorm_init, rmsnorm_split
@@ -166,8 +170,14 @@ class Mamba2Mixer(nn.Module):
     def init_cache(self, batch: int, dtype) -> dict[str, torch.Tensor]:
         return ssm_init_cache(self.cfg, batch, dtype, self.wz.device)
 
-    def decode(self, xin: torch.Tensor, cache: dict[str, torch.Tensor]):
-        """Single-token recurrent step.  xin: (B,1,D) -> (out (B,1,D), new cache)."""
+    def decode(self, xin: torch.Tensor, cache: dict[str, torch.Tensor], out: torch.Tensor):
+        """Single-token recurrent step.  xin: (B,1,D) -> (out (B,1,D), new cache).
+
+        The new state is written into ``out``, a tensor of the state's shape, which may be
+        ``cache["state"]`` itself: the update is then in place.
+        The update and its contraction with C are ``kernels/ssm_decode``'s (under ``tp_group`` over
+        the rank's heads): the CUDA kernel on the card, which raises for what it cannot take, and
+        the plain reference on the CPU."""
         cfg = self.cfg
         cd = _dtype(cfg.compute_dtype)
         b = xin.shape[0]
@@ -191,18 +201,11 @@ class Mamba2Mixer(nn.Module):
         dt = self._dt(dt_raw[:, 0])  # (B,H)
         a = -torch.exp(self.a_log.to(torch.float32))
 
-        decay = torch.exp(a[None] * dt)  # (B,H)
-        rep = h // g
-        bvec_h = bvec.repeat_interleave(rep, dim=1).to(torch.float32)  # (B,H,N)
-        cvec_h = cvec.repeat_interleave(rep, dim=1).to(torch.float32)
-        dx = dt[..., None] * x.to(torch.float32)  # (B,H,P)
-        state = cache["state"] * decay[..., None, None] + dx[..., None] * bvec_h[:, :, None, :]
-        y = torch.einsum("bhpn,bhn->bhp", state, cvec_h).to(cd)
-        y = y + x * self.d_skip.to(cd)[None, :, None]
-        out = self._gate_out(y.reshape(b, 1, di), z)
+        state, y = ssm_decode_ops.ssm_decode(cache["state"], x, dt, a, bvec, cvec, out=out)
+        y = y.to(cd) + x * self.d_skip.to(cd)[None, :, None]
+        y = self._gate_out(y.reshape(b, 1, di), z)
         hist = hist[:, 1:, :]
         if self.tp_group is not None:
             hist = torch.cat([tp.gather(hist[..., :di], -1, self.tp_group), hist[..., di:]], dim=-1)
-        new_cache = {"state": state, "conv": hist.to(cache["conv"].dtype)}
-        return out, new_cache
+        return y, {"state": state, "conv": hist.to(cache["conv"].dtype)}
 

@@ -441,11 +441,11 @@ def _pos_on_device(cfg: ArchConfig, params: LM) -> bool:
     return cfg.family in _MAMBA2_LOOP
 
 
-def _stack_states(news: list, into: dict) -> dict[str, torch.Tensor]:
-    """The Mamba2 layers' new states and conv tails as the cache's stacks, into ``into``'s tensors if it has them;
-    the layers that leave None (granitemoehybrid's attention) hold no row."""
+def _stack_states(news: list, into: dict, keys=("state", "conv")) -> dict[str, torch.Tensor]:
+    """The Mamba2 layers' new ``keys`` (states, conv tails) as the cache's stacks, into ``into``'s tensors if it
+    has them; the layers that leave None (granitemoehybrid's attention) hold no row."""
     with span("model.new_cache"):
-        return {k: torch.stack([new[k] for new in news if new is not None], out=into.get(k)) for k in ("state", "conv")}
+        return {k: torch.stack([new[k] for new in news if new is not None], out=into.get(k)) for k in keys}
 
 
 @torch.inference_mode()
@@ -461,13 +461,18 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
     step, as the ssm's, reads nothing back to the host; the other families read
     it as an int.
 
+    Each Mamba2 layer writes its new state into its row of the new cache's
+    state (``Mamba2Mixer.decode``'s ``out``), which the call allocates whole
+    up front; the conv tails are stacked after the walk.
+
     ``out`` (the Mamba2-loop families) is a cache of the same structure
     and shapes into whose tensors the new cache is written and returned: the
     same work and the same bits as the call that allocates.  The old K/V are
     copied into ``out``'s first.  ``out`` may be the input cache itself, which is
-    then updated in place (each layer reads its slice of the old state before
-    the stacks write the new ones, each site writes its K/V row in place, and
-    ``pos`` moves on last), as ``DecodeGraphs`` replays it.
+    then updated in place (each layer reads its row of the old state and writes
+    the new one over it, the conv stack writes after every layer has read its
+    tail, each site writes its K/V row in place, and ``pos`` moves on last), as
+    ``DecodeGraphs`` replays it.
     """
     if out is not None and cfg.family not in _MAMBA2_LOOP:
         raise ValueError(f"decode_step: out= takes an ssm, hybrid or zamba2 cache or a granitemoehybrid one, "
@@ -489,16 +494,18 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
                         new_k.copy_(cache["k"])
                         new_v.copy_(cache["v"])
             new_cache["k"], new_cache["v"] = new_k, new_v
+        if cfg.family in _MAMBA2_LOOP:  # each Mamba2 layer writes its row (no device work here)
+            states = out["ssm"]["state"] if "ssm" in out else torch.empty_like(cache["ssm"]["state"])
 
         def attend(p, u, row, rope):
             return attention_decode(cfg, p, u, {"k": new_k[row], "v": new_v[row]}, pos, rope=rope)[0]
 
         def mix(i, mixer, u):
-            return mixer.decode(u, {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]})
+            return mixer.decode(u, {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}, out=states[i])
 
         x, news = _walk(cfg, params, x, attend, mix)
         if cfg.family in _MAMBA2_LOOP:
-            new_cache["ssm"] = _stack_states(news, out.get("ssm", {}))
+            new_cache["ssm"] = {"state": states, **_stack_states(news, out.get("ssm", {}), ("conv",))}
         new_cache["pos"] = torch.add(cache["pos"], 1, out=out.get("pos"))
         with span("model.head"):
             x = rmsnorm(params.final_norm, x, cfg.norm_eps)

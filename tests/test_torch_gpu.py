@@ -18,6 +18,8 @@ from repro_torch.kernels.merge_runs import kernel as merge_kernel
 from repro_torch.kernels.merge_runs import ops as merge_ops
 from repro_torch.kernels.merge_runs.ref import merge_runs_ref, words
 from repro_torch.kernels.ssd_scan import kernel, ops
+from repro_torch.kernels.ssm_decode import ops as sd_ops
+from repro_torch.kernels.ssm_decode.ref import ssm_decode_ref
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models.layers import kv_head_map
 
@@ -511,6 +513,132 @@ def test_replayed_zamba2_decode_launches_the_kernel_at_capture_only(cuda):
                        transformer.DECODE_GRAPHS["captures"] - before[1]["captures"],
                        transformer.DECODE_GRAPHS["replays"] - before[1]["replays"]))
     assert counts == [(2 * sites, 1, 4), (0, 0, 4)]
+
+
+# ------------------------------------------------------------- ssm decode
+def _sd_inputs(b, h, g, p, n, dtype, seed):
+    """A layer's state, and x, B and C as the Mixer's decode slices them from its conv output
+    (views of one wider (B, H P + 2 G N) row, by strides), dt after softplus, a as initialised."""
+    r = np.random.default_rng(seed)
+    state = torch.tensor(r.standard_normal((b, h, p, n)), dtype=torch.float32, device="cuda")
+    row = torch.tensor(r.standard_normal((b, h * p + 2 * g * n)), dtype=torch.float32, device="cuda").to(dtype)
+    x = row[:, :h * p].reshape(b, h, p)
+    bvec = row[:, h * p:h * p + g * n].reshape(b, g, n)
+    cvec = row[:, h * p + g * n:].reshape(b, g, n)
+    dt = F.softplus(torch.tensor(r.standard_normal((b, h)), dtype=torch.float32, device="cuda"))
+    a = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device="cuda")))
+    return state, x, dt, a, bvec, cvec
+
+
+@pytest.mark.parametrize("into", ["other", "in-place"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,g,p,n", [
+    (32, 48, 1, 64, 128),    # mamba2-780m.chat
+    (32, 112, 2, 64, 64),    # zamba2-7b-instruct.chat
+    (32, 128, 1, 64, 128),   # granite-4.0-h-small.chat
+    (3, 48, 1, 64, 128),     # a ragged batch
+    (2, 8, 2, 24, 256),      # two float4 a lane, P not a multiple of the tile
+    (4, 8, 1, 16, 16),       # the tiny models' rows
+])
+def test_ssm_decode_kernel_matches_plain(cuda, b, h, g, p, n, dtype, into):
+    """The kernel's new state is the plain step's bit for bit, into another tensor or over the
+    state itself; its y lies within 1e-5 x sum |new * C| of the exact sum (the kernel's stated
+    tolerance: only the order of y's sums differs), as the plain einsum's does; the same inputs
+    give the same bits again."""
+    state, x, dt, a, bvec, cvec = _sd_inputs(b, h, g, p, n, dtype, seed=b * h + n)
+    want, want_y = ssm_decode_ref(state, x, dt, a, bvec, cvec)
+    before = sd_ops.LAUNCHES
+    runs = []
+    for _ in range(2):
+        src = state.clone()
+        out = src if into == "in-place" else torch.full_like(state, float("nan"))
+        new, y = sd_ops.ssm_decode(src, x, dt, a, bvec, cvec, out=out)
+        torch.cuda.synchronize()
+        assert new is out and y.dtype == torch.float32 and y.shape == (b, h, p)
+        runs.append((new, y))
+    assert sd_ops.LAUNCHES == before + 2
+    new, y = runs[0]
+    assert torch.equal(new, want)
+    cvec_h = cvec.repeat_interleave(h // g, dim=1).double()
+    exact = torch.einsum("bhpn,bhn->bhp", want.double(), cvec_h)
+    scale = torch.einsum("bhpn,bhn->bhp", want.double().abs(), cvec_h.abs())
+    assert ((y.double() - exact).abs() <= 1e-5 * scale).all()
+    assert ((want_y.double() - exact).abs() <= 1e-5 * scale).all()
+    assert torch.equal(runs[1][0], new) and torch.equal(runs[1][1], y)  # no atomics
+
+
+@pytest.mark.parametrize("b,h,g,p,n,ranks", [
+    (32, 48, 1, 64, 128, 4),   # mamba2-780m's heads over a model axis of 4
+    (32, 112, 2, 64, 64, 2),   # zamba2-7b-instruct's over 2: 56 heads a rank on both groups
+    (4, 80, 1, 64, 64, 2),     # zamba2-2.7b's f32 decode twins
+])
+def test_ssm_decode_kernel_takes_a_ranks_heads(cuda, b, h, g, p, n, ranks):
+    """A sharded decode hands the kernel its rank's heads (with all of B and C): the kernel's new
+    state there is the plain step's bit for bit, and its y within the stated tolerance, on each
+    rank's slice, in bf16 and f32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        state, x, dt, a, bvec, cvec = _sd_inputs(b, h, g, p, n, dtype, seed=h + n)
+        hl = h // ranks
+        for r in range(ranks):
+            part = slice(r * hl, (r + 1) * hl)
+            st, xl, dtl, al = state[:, part].contiguous(), x[:, part], dt[:, part].contiguous(), a[part].contiguous()
+            want, _ = ssm_decode_ref(st, xl, dtl, al, bvec, cvec)
+            new, y = sd_ops.ssm_decode(st, xl, dtl, al, bvec, cvec, out=torch.empty_like(st))
+            assert torch.equal(new, want)
+            cvec_h = cvec.repeat_interleave(hl // g, dim=1).double()
+            exact = torch.einsum("bhpn,bhn->bhp", want.double(), cvec_h)
+            scale = torch.einsum("bhpn,bhn->bhp", want.double().abs(), cvec_h.abs())
+            assert ((y.double() - exact).abs() <= 1e-5 * scale).all()
+
+
+def test_ssm_decode_kernel_rejects_what_it_cannot_take(cuda):
+    """What the kernel cannot take raises, from the kernel's launcher and from the dispatcher the
+    model calls alike: a CUDA call never falls back to the plain step."""
+    state, x, dt, a, bvec, cvec = _sd_inputs(2, 4, 2, 8, 16, torch.bfloat16, seed=0)
+    from repro_torch.kernels.ssm_decode import kernel as sd_kernel
+
+    cases = [
+        (state, x.half(), dt, a, bvec.half(), cvec.half(), state, "float32 or bfloat16"),  # x's dtype
+        (state, x, dt, a, bvec.float(), cvec, state, "share"),                            # B's differs
+        (state.double(), x, dt, a, bvec, cvec, state.double(), "float32"),                # the state's
+        (state[..., :12].contiguous(), x, dt, a, bvec[..., :12], cvec[..., :12],
+         state[..., :12].contiguous(), "N in"),                                           # N = 12
+        (state, x, dt, a, bvec, cvec, state.transpose(2, 3).contiguous().transpose(2, 3), "contiguous"),
+        (state, x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bvec, cvec, state, "last axis"),
+        (state, x, dt.cpu(), a, bvec, cvec, state, "CUDA"),                               # dt on the host
+        (state, x, dt, a, bvec[:, :1].expand(2, 3, 16), cvec[:, :1].expand(2, 3, 16), state, "H % G"),
+        (state, x[:1], dt, a, bvec, cvec, state, "do not agree"),                         # B differs
+        (state, x, dt, a[:2], bvec, cvec, state, "do not agree"),                         # a's heads
+    ]
+    launches = sd_ops.LAUNCHES
+    for st, xx, d, aa, bb, cc, out, match in cases:
+        with pytest.raises(ValueError, match=match):
+            sd_kernel.ssm_decode_cuda(st, xx, d, aa, bb, cc, out)
+        with pytest.raises(ValueError, match=match):
+            sd_ops.ssm_decode(st, xx, d, aa, bb, cc, out=out)
+    assert sd_ops.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("arch,compute_dtype", [("mamba2-780m", "bfloat16"), ("zamba2", "bfloat16"),
+                                                ("granite", "bfloat16")])
+def test_replayed_decode_launches_the_ssm_kernel_at_capture_only(cuda, arch, compute_dtype):
+    """A model served through replayed graphs: ``ssm_decode``'s ``LAUNCHES`` rises by the Mamba2
+    layers once for each ``decode_step`` run while a graph is captured (its warm-up step and the
+    captured one) and by nothing per replay, so each replayed step runs the kernel."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request
+
+    cfg, _, make = _graph_engine(cuda, compute_dtype, arch)
+    eng = make()
+    rows = transformer.ssm_rows(cfg)
+    counts = []
+    for _ in range(2):  # the first batch captures, the second (same shape) only replays
+        before = (sd_ops.LAUNCHES, dict(transformer.DECODE_GRAPHS))
+        eng.run_batch([Request(i, torch.arange(8) * (i + 1) % cfg.vocab_size, max_new_tokens=5) for i in range(4)])
+        counts.append((sd_ops.LAUNCHES - before[0],
+                       transformer.DECODE_GRAPHS["captures"] - before[1]["captures"],
+                       transformer.DECODE_GRAPHS["replays"] - before[1]["replays"]))
+    assert counts == [(2 * rows, 1, 4), (0, 0, 4)]
 
 
 # ------------------------------------------------------------- decode graphs

@@ -109,7 +109,7 @@ def test_a_hybrid_decode_step_records_attention_at_its_sites():
         inner = _inside(spans, step)
         assert len(_named(inner, "model.mamba2")) == cfg.num_layers
         assert len(_named(inner, "model.attention")) == sites
-        assert len(_named(inner, "model.new_cache")) == 2  # the K/V copy, the state stack
+        assert len(_named(inner, "model.new_cache")) == 2  # the K/V copy, the conv stack
         for a in _named(inner, "model.attention"):
             assert not any(m[0] <= a[0] and a[1] <= m[1] for m in _named(inner, "model.mamba2"))
     (prefill,) = _named(spans, "model.prefill")
