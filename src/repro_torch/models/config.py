@@ -1,9 +1,11 @@
 """Architecture configuration shared by every model family.
 
 One dataclass covers the whole assigned pool (dense GQA, MoE, SSM, hybrid,
-encoder-decoder, VLM backbone) and the port's two published hybrids: ``zamba2``,
-Zamba2 (arXiv:2411.15242), and ``granitemoehybrid``, IBM Granite 4.0-H (Mamba2 and
-NoPE GQA mixers, each followed by a dropless MoE; ``models/transformer.py``).  Family-specific fields
+encoder-decoder, VLM backbone) and the port's three published hybrids: ``zamba2``,
+Zamba2 (arXiv:2411.15242), ``granitemoehybrid``, IBM Granite 4.0-H (Mamba2 and
+NoPE GQA mixers, each followed by a dropless MoE), and ``falcon_h1``, Falcon-H1
+(RoPE GQA attention beside a Mamba2 Mixer in every layer, µP multipliers;
+``models/transformer.py``).  Family-specific fields
 are ignored by other families; the fields marked port-only have no
 counterpart in the reference's config, and their defaults leave every other
 family as the reference builds it.  ``reduced()`` derives the small
@@ -16,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "hybrid", "zamba2", "granitemoehybrid", "encdec", "vlm"]
+Family = Literal["dense", "moe", "ssm", "hybrid", "zamba2", "granitemoehybrid", "falcon_h1", "encdec", "vlm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +57,8 @@ class ArchConfig:
     attn_every: int = 0               # apply the shared attn block every k ssm layers
     # zamba2, the published form (port-only)
     hybrid_layer_ids: tuple[int, ...] = ()  # Mamba2 layers whose input a shared-block site adds to;
-                                      # granitemoehybrid: its attention layers (the rest are Mamba2)
+                                      # granitemoehybrid: its attention layers (the rest are Mamba2);
+                                      # falcon_h1: every layer (each holds a K/V row beside its SSM row)
     num_mem_blocks: int = 0           # shared blocks, taken in turn by the sites
     adapter_rank: int = 0             # each site's LoRA rank on the block's MLP input projection
     mem_rope: bool = False            # RoPE in the shared blocks' attention
@@ -66,6 +69,13 @@ class ArchConfig:
     residual_multiplier: float = 1.0  # each mixer's and each MoE's output is scaled by it before the residual add
     attention_multiplier: float = 0.0  # the scores' scale (0: the family's rule, ``layers.softmax_scale``)
     logits_scaling: float = 1.0       # the head's logits are divided by it
+    # falcon_h1's Mamba2 width and µP multipliers (port-only; the defaults change nothing and launch nothing)
+    ssm_inner: int = 0                # the Mamba2 inner width, published mamba_d_ssm (0: d_model x ssm_expand)
+    ssm_in_multiplier: float = 1.0    # the Mixer's input is scaled by it before its projections
+    ssm_multipliers: tuple[float, ...] = ()  # the [z, x, B, C, dt] projections are scaled by these (empty: 1)
+    ssm_out_multiplier: float = 1.0   # the Mixer's output is scaled by it before the residual add
+    attention_out_multiplier: float = 1.0  # attention's output is scaled by it before the residual add
+    mlp_multipliers: tuple[float, ...] = ()  # the SwiGLU's gate product and output are scaled by these (empty: 1)
     # encoder-decoder (whisper-style)
     encoder_layers: int = 0
     encoder_frames: int = 1500        # precomputed frame embeddings (stub frontend)
@@ -84,7 +94,14 @@ class ArchConfig:
 
     def __post_init__(self):
         # a configuration file gives the sites as a list; the config is frozen and hashable
-        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
+        for key in ("hybrid_layer_ids", "ssm_multipliers", "mlp_multipliers"):
+            object.__setattr__(self, key, tuple(getattr(self, key)))
+        if len(self.ssm_multipliers) not in (0, 5) or len(self.mlp_multipliers) not in (0, 2):
+            raise ValueError(f"ssm_multipliers takes [z, x, B, C, dt] and mlp_multipliers [gate, down]; got "
+                             f"{self.ssm_multipliers} and {self.mlp_multipliers}")
+        if self.family == "falcon_h1" and self.hybrid_layer_ids != tuple(range(self.num_layers)):
+            raise ValueError(f"falcon_h1 holds attention beside Mamba2 in every layer: hybrid_layer_ids must list "
+                             f"all {self.num_layers} layers, got {self.hybrid_layer_ids}")
         if self.experts_held and self.expert_first + self.experts_held > self.num_experts:
             raise ValueError(f"experts {self.expert_first}..{self.expert_first + self.experts_held - 1} held "
                              f"of a router over {self.num_experts}")
@@ -103,7 +120,7 @@ class ArchConfig:
 
     @property
     def ssm_d_inner(self) -> int:
-        return self.d_model * self.ssm_expand
+        return self.ssm_inner or self.d_model * self.ssm_expand
 
     @property
     def ssm_num_heads(self) -> int:
@@ -171,6 +188,11 @@ class ArchConfig:
             moe = d * self.num_experts + 3 * d * self.expert_d_ff * (self.num_experts_held + self.num_shared_experts)
             na = len(self.hybrid_layer_ids)
             return (self.num_layers - na) * mamba + na * attn + self.num_layers * (moe + 2 * d) + emb + d
+        if self.family == "falcon_h1":  # exact: every leaf, attention, Mamba2 and the MLP in each layer
+            di, h, gn, w = self.ssm_d_inner, self.ssm_num_heads, self.ssm_groups * self.ssm_state, self.ssm_conv_width
+            mamba = d * (2 * di + 2 * gn + h) + di * d + (w + 1) * (di + 2 * gn) + 3 * h + di
+            attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+            return self.num_layers * (attn + mamba + 3 * d * self.d_ff + 2 * d) + emb + d
         raise ValueError(self.family)
 
     def active_param_count(self) -> int:
@@ -189,7 +211,9 @@ class ArchConfig:
         groups and three sites that use both blocks, over 8 layers; its heads stay MHA, each
         of 2 * d_model / heads, as the published attention derives them.  A granitemoehybrid
         config keeps 4 layers with attention at layer 1, every expert of 8 held, its
-        multipliers and a shared expert twice an expert's width."""
+        multipliers and a shared expert twice an expert's width.  A falcon_h1 config keeps 2 layers,
+        each with attention beside Mamba2, its groups, a Mamba2 inner width of 4 heads of 16 and
+        its multipliers."""
         changes = dict(
             name=self.name + "-reduced",
             num_layers=min(self.num_layers, 2 if self.family != "hybrid" else 4),
@@ -221,4 +245,6 @@ class ArchConfig:
         if self.family == "granitemoehybrid":
             changes.update(num_layers=min(self.num_layers, 4), hybrid_layer_ids=(1,), experts_held=0, expert_first=0,
                            num_shared_experts=self.num_shared_experts)
+        if self.family == "falcon_h1":
+            changes.update(hybrid_layer_ids=tuple(range(changes["num_layers"])), ssm_inner=64)
         return dataclasses.replace(self, **changes)

@@ -538,15 +538,23 @@ def mlp_init(d_model: int, d_ff: int, dtype, generator: torch.Generator, device)
     return MLP(d_model, d_ff, dtype, generator, device)
 
 
-def mlp(p: MLP, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+def scaled(x: torch.Tensor, m: float) -> torch.Tensor:
+    """``x * m``, or ``x`` itself where m is 1: a multiplier of 1 launches nothing."""
+    return x if m == 1 else x * m
+
+
+def mlp(p: MLP, x: torch.Tensor, compute_dtype: str, multipliers: tuple[float, ...] = ()) -> torch.Tensor:
+    """``down(silu(g * (x @ gate)) * (x @ up)) * o`` with ``multipliers`` (g, o) (falcon_h1's µP;
+    empty: both 1, and nothing is multiplied)."""
     cd = _dtype(compute_dtype)
-    return tp.reduce(mlp_partial(p, tp.copy(x.to(cd), p.tp_group), cd), p.tp_group)
+    return tp.reduce(mlp_partial(p, tp.copy(x.to(cd), p.tp_group), cd, multipliers), p.tp_group)
 
 
-def mlp_partial(p: MLP, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+def mlp_partial(p: MLP, x: torch.Tensor, cd: torch.dtype, multipliers: tuple[float, ...] = ()) -> torch.Tensor:
     """``mlp`` inside a region: ``x`` in ``cd`` has entered it, and under TP the
     result is this rank's part of the sum over the hidden columns."""
-    return (F.silu(x @ p.gate.to(cd)) * (x @ p.up.to(cd))) @ p.down.to(cd)
+    g, o = multipliers or (1.0, 1.0)
+    return scaled((F.silu(scaled(x @ p.gate.to(cd), g)) * (x @ p.up.to(cd))) @ p.down.to(cd), o)
 
 
 class GeluMLP(nn.Module):

@@ -5,8 +5,12 @@ Follows the Mamba2 formulation (arXiv:2405.21060): input projections to
 scalar-per-head decay A, gated RMSNorm, output projection.  B and C come in
 ``cfg.ssm_groups`` groups of ``ssm_state`` columns: head h reads group
 h // (heads / groups), and the gated norm works on each group's channels
-(zamba2's two groups; every other family has one).  ``cfg.ssm_dt_min`` floors
-dt after its softplus, as the published Zamba2 Mixer does.
+(zamba2's and falcon_h1's two groups; every other family has one).  ``cfg.ssm_dt_min``
+floors dt after its softplus, as the published Zamba2 Mixer does.  The inner width
+is ``cfg.ssm_d_inner`` (falcon_h1 sets its own, ``ssm_inner``), and falcon_h1's µP
+multipliers scale the five projections: ``ssm_in_multiplier`` times each of
+``ssm_multipliers``, folded into one scalar a projection (``mup``), a plain float
+that multiplies nothing where it is 1.
 
 Parameters keep the reference's names and layouts: the projections are
 separate (wz/wx/wb/wc/wdt, each (d_model, out) and applied as ``x @ w``), the
@@ -40,7 +44,7 @@ from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssm_decode import ops as ssm_decode_ops
 from ..sharding import tp
 from .config import ArchConfig
-from .layers import _dtype, _normal, _param, rmsnorm_grouped, rmsnorm_init, rmsnorm_split
+from .layers import _dtype, _normal, _param, rmsnorm_grouped, rmsnorm_init, rmsnorm_split, scaled
 
 
 def _causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -99,12 +103,14 @@ class Mamba2Mixer(nn.Module):
         self.d_skip = const(torch.ones(h))
         self.norm = rmsnorm_init(di, dt, device)
         self.out_proj = normal((di, d), di**-0.5)
+        # the scale of each of z, x, B, C and dt: the input's times the projection's (falcon_h1's µP)
+        self.mup = tuple(cfg.ssm_in_multiplier * m for m in cfg.ssm_multipliers or (1.0,) * 5)
 
     def _project(self, xc: torch.Tensor):
         cd, g = xc.dtype, self.tp_group
         xc = tp.copy(xc, g)
         wb, wc = tp.copy(self.wb, g), tp.copy(self.wc, g)
-        return tuple(xc @ w.to(cd) for w in (self.wz, self.wx, wb, wc, self.wdt))
+        return tuple(scaled(xc @ w.to(cd), m) for w, m in zip((self.wz, self.wx, wb, wc, self.wdt), self.mup))
 
     def _convs(self) -> tuple[torch.Tensor, ...]:
         """(conv_x, conv_bx, conv_b, conv_bb, conv_c, conv_bc) as this rank reads them:

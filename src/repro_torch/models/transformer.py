@@ -1,4 +1,5 @@
-"""Decoder-only LM composition for the dense / MoE / SSM / hybrid / zamba2 / granitemoehybrid / VLM families.
+"""Decoder-only LM composition for the dense / MoE / SSM / hybrid / zamba2 / granitemoehybrid / falcon_h1 / VLM
+families.
 
 ``init_params`` returns an ``nn.Module`` (``LM``) whose layers sit in an
 ``nn.ModuleList``; the functions take it where the reference takes its param
@@ -17,7 +18,8 @@ which the hybrid (zamba2-style) family puts ONE weight-shared attention block
 (``shared_block``) after every ``attn_every``-th layer, and zamba2 its sites
 before theirs.  Each shared-block site has its own K/V row (weights shared,
 caches not).  A granitemoehybrid layer is a mixer, Mamba2 or (at the layers
-``hybrid_layer_ids`` names) attention, then the MoE.  The three steps differ
+``hybrid_layer_ids`` names) attention, then the MoE.  A falcon_h1 layer runs
+attention and the Mamba2 Mixer side by side on one normed input, then the MLP.  The three steps differ
 only in the two hooks they hand the walk: how attention runs at a K/V row, and
 how the Mamba2 mixer runs at its row of the SSM cache.
 
@@ -40,14 +42,24 @@ elsewhere, then ``x + m * (moe(u) + shared(u))`` with u = rmsnorm(x): the
 dropless MoE over the experts held here and the shared expert
 (``moe.moe_dropless``); m is ``residual_multiplier``.  The embedding is scaled
 by ``embedding_multiplier`` and the logits divided by ``logits_scaling``
-(``layers.embed``, ``layers.unembed``).  The cache keeps the reference's stacked
-layouts:
+(``layers.embed``, ``layers.unembed``).
+
+The falcon_h1 family is Falcon-H1 (transformers' ``modeling_falcon_h1.py``), which the
+port alone holds.  Layer i computes ``u = rmsnorm(x)``, then ``x + s * mamba(u) +
+o * attention(u)`` (s and o the ``ssm_out`` and ``attention_out`` multipliers; the
+published ``attention_in_multiplier`` is 1 and is not held; RoPE GQA attention, scores scaled by
+``attention_multiplier``, which holds the published key multiplier times head_dim^-0.5,
+so K is cached unscaled), then ``x + mlp(rmsnorm(x))`` with the MLP's two multipliers
+(``layers.mlp``).  The Mixer's inner width is its own (``ssm_inner``) and its five
+projections carry µP scales (``models/ssm.py``).  Every layer holds K/V row i and SSM row
+i.  The head is untied.  The cache keeps the reference's stacked layouts:
 
 - ssm: ``ssm.state`` (layers, B, H, P, N) float32, ``ssm.conv``
   (layers, B, conv_width-1, conv_dim) in the cache dtype, ``pos``;
 - hybrid and zamba2: the ssm leaves, and ``k`` and ``v`` (sites, B, max_len, K, hd);
 - granitemoehybrid: the ssm leaves over its Mamba2 layers alone, and ``k`` and
   ``v`` over its attention layers alone (``layer_rows`` gives each layer's rows);
+- falcon_h1: the ssm leaves and ``k`` and ``v``, each over every layer;
 - dense, moe and vlm: ``k`` and ``v`` (layers, B, max_len, K, hd), ``pos``.
 
 With ``attention_impl="flash"`` the full-sequence attention of ``forward``
@@ -98,6 +110,7 @@ from .layers import (
     mlp_init,
     rmsnorm,
     rmsnorm_init,
+    scaled,
     unembed,
     vocab_logits,
 )
@@ -183,8 +196,22 @@ class GraniteLayer(nn.Module):
         self.moe = moe_init(cfg, generator, device)
 
 
+class FalconH1Layer(nn.Module):
+    """A falcon_h1 layer: the norm that both mixers read, attention and the Mamba2 Mixer side by
+    side, the norm before the MLP, and the SwiGLU MLP."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        dt = _dtype(cfg.param_dtype)
+        self.norm = rmsnorm_init(cfg.d_model, dt, device)
+        self.attn = attention_init(cfg, generator, device)
+        self.ssm = Mamba2Mixer(cfg, generator, device)
+        self.ln2 = rmsnorm_init(cfg.d_model, dt, device)
+        self.mlp = mlp_init(cfg.d_model, cfg.d_ff, dt, generator, device)
+
+
 # the families that walk a loop of Mamba2 layers, with state in their cache and `pos` on the device
-_MAMBA2_LOOP = ("ssm", "hybrid", "zamba2", "granitemoehybrid")
+_MAMBA2_LOOP = ("ssm", "hybrid", "zamba2", "granitemoehybrid", "falcon_h1")
 
 _LAYER = {
     "ssm": Mamba2Layer,
@@ -194,6 +221,7 @@ _LAYER = {
     "vlm": DenseLayer,
     "moe": functools.partial(DenseLayer, moe=True),
     "granitemoehybrid": GraniteLayer,
+    "falcon_h1": FalconH1Layer,
 }
 
 
@@ -244,7 +272,8 @@ def layer_rows(cfg: ArchConfig) -> tuple[tuple[int | None, int | None], ...]:
     hybrids' shared-block sites number the K/V rows: the hybrid's follow each layer i with
     (i + 1) % attn_every == 0, zamba2's add to the input of each layer in ``hybrid_layer_ids``.
     granitemoehybrid's layers in ``hybrid_layer_ids`` are its attention layers, each with a K/V
-    row and no SSM row; its Mamba2 layers number the SSM rows in turn."""
+    row and no SSM row; its Mamba2 layers number the SSM rows in turn.  falcon_h1's layer i,
+    which ``hybrid_layer_ids`` lists with every other, holds K/V row i and SSM row i."""
     n = cfg.num_layers
     if cfg.family not in _MAMBA2_LOOP:
         return tuple((i, None) for i in range(n))
@@ -320,6 +349,22 @@ def _granite_layer(cfg: ArchConfig, lp: GraniteLayer, i: int, x: torch.Tensor, a
         return x + moe_dropless(cfg, lp.moe, rmsnorm(lp.ln2, x, cfg.norm_eps)) * m, new
 
 
+def _falcon_layer(cfg: ArchConfig, lp: FalconH1Layer, i: int, x: torch.Tensor, attend, mix):
+    """falcon_h1's layer ``i``: the Mamba2 Mixer at SSM row i and RoPE attention at K/V row i, side
+    by side on one normed input, each with its multipliers, summed into one residual add; then the
+    MLP with its multipliers.  Returns (x out, the Mixer's new state)."""
+    j, r = layer_rows(cfg)[i]
+    with span("model.parallel_mixer", ("layer", i)):
+        u = rmsnorm(lp.norm, x, cfg.norm_eps)
+        with span("model.mamba2", ("layer", i)):
+            h, new = mix(r, lp.ssm, u)
+            h = scaled(h, cfg.ssm_out_multiplier)
+        with span("model.attention", ("row", j)):
+            a = scaled(attend(lp.attn, u, j, True), cfg.attention_out_multiplier)
+        x = x + (h + a)
+    return x + mlp(lp.mlp, rmsnorm(lp.ln2, x, cfg.norm_eps), cfg.compute_dtype, cfg.mlp_multipliers), new
+
+
 def _layer(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, e: torch.Tensor, attend, mix):
     """The reference's scan body: layer ``i`` and what sits at it, in the module docstring's
     order (``e``: the token embeddings, for zamba2's sites).  Returns (x out, what the layer
@@ -327,6 +372,8 @@ def _layer(cfg: ArchConfig, params: LM, i: int, x: torch.Tensor, e: torch.Tensor
     lp = params.layers[i]
     if cfg.family == "granitemoehybrid":
         return _granite_layer(cfg, lp, i, x, attend, mix)
+    if cfg.family == "falcon_h1":
+        return _falcon_layer(cfg, lp, i, x, attend, mix)
     if cfg.family not in _MAMBA2_LOOP:
         return _block(cfg, lp, x, i, attend)
     j, r = layer_rows(cfg)[i]
@@ -475,8 +522,8 @@ def decode_step(cfg: ArchConfig, params: LM, cache, tokens: torch.Tensor, out=No
     ``DecodeGraphs`` replays it.
     """
     if out is not None and cfg.family not in _MAMBA2_LOOP:
-        raise ValueError(f"decode_step: out= takes an ssm, hybrid or zamba2 cache or a granitemoehybrid one, "
-                         f"not the {cfg.family} family's")
+        raise ValueError(f"decode_step: out= takes an ssm, hybrid or zamba2 cache or a granitemoehybrid or "
+                         f"falcon_h1 one, not the {cfg.family} family's")
     out = out or {}
     with span("model.decode_step"):
         _check(cfg, params)

@@ -133,16 +133,16 @@ def _unstack_layers(stacked: dict[str, torch.Tensor], names) -> dict[str, torch.
 
 
 def _refuse_served_only(cfg: ArchConfig, what: str) -> None:
-    """The zamba2 and granitemoehybrid families are served on one card: their training and sharded
-    steps are not built."""
-    if cfg.family in ("zamba2", "granitemoehybrid"):
+    """The zamba2, granitemoehybrid and falcon_h1 families are served on one card: their training and
+    sharded steps are not built."""
+    if cfg.family in ("zamba2", "granitemoehybrid", "falcon_h1"):
         raise NotImplementedError(f"{what}: the {cfg.family} family runs unsharded through prefill, decode_step "
                                   "and forward only; its training and tensor-parallel steps are not built")
 
 
 def make_train_fn(cfg: ArchConfig, ocfg: adamw.AdamWConfig | None = None, *, compress: str = "none",
                   accum_steps: int = 1, grad_dtype: str = "float32"):
-    """The train-step function (not for the zamba2 or granitemoehybrid family, ``_refuse_served_only``).
+    """The train-step function (not for the zamba2, granitemoehybrid or falcon_h1 family, ``_refuse_served_only``).
 
     ``grad_dtype='bfloat16'`` differentiates w.r.t. a bf16 copy of the params
     (mixed precision): gradients — and therefore the data-parallel reduction

@@ -86,6 +86,16 @@ def test_ssd_kernel_matches_ref(cuda, b, s, h, p, g, n, L, dtype):
     _check(out, ssd_scan_ref(*args, chunk=L), dtype)
 
 
+def test_ssd_kernel_at_falcon_h1s_shape(cuda):
+    """bf16 at falcon-h1-34b-instruct's prefill shape: 32 heads of P 128 over two groups of N 256,
+    chunk 128, 4 x 1024 tokens (eight chunks), within the bf16 bar of the plain scan.  (The f32
+    kernel keeps a head's whole state and tiles in shared memory, 353 KB here: it refuses this shape.)"""
+    args = _inputs(4, 1024, 32, 128, 2, 256, 7, torch.bfloat16, cuda)
+    out = kernel.ssd_scan_cuda(*args, chunk=128)
+    torch.cuda.synchronize()
+    _check(out, ssd_scan_ref(*args, chunk=128), torch.bfloat16)
+
+
 @pytest.mark.parametrize("s,L", [(1000, 256), (40, 16), (10, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_ops_pads_ragged_sequence(cuda, s, L, dtype):
@@ -433,6 +443,7 @@ CHUNK = da_kernel.CHUNK
     + [(32, 1088, 32, 32, 224, 0, 32, 100, 1056)]                                          # with a window
     + [(4, 300, 8, 2, 128, 0, 2, w, pos) for w in (0, 50) for pos in (0, CHUNK - 1, CHUNK, 299)]  # grouped
     + [(32, 1088, 32, 8, 128, 0, 8, 0, pos) for pos in (0, CHUNK, 1056, 1087)]  # a granite-4.0-h-small layer
+    + [(32, 1088, 20, 4, 128, 0, 4, 0, pos) for pos in (0, CHUNK, 1056, 1087)]  # falcon-h1-34b-instruct: 5 a group
     + [
         (2, 200, 8, 3, 64, 6, 3, 0, 130),     # padded q heads, clamped to the last kv head
         (2, 150, 32, 2, 64, 0, 2, 0, 149),    # 16 q heads a kv head: two rounds over the rows
@@ -536,6 +547,7 @@ def _sd_inputs(b, h, g, p, n, dtype, seed):
     (32, 48, 1, 64, 128),    # mamba2-780m.chat
     (32, 112, 2, 64, 64),    # zamba2-7b-instruct.chat
     (32, 128, 1, 64, 128),   # granite-4.0-h-small.chat
+    (32, 32, 2, 128, 256),   # falcon-h1-34b-instruct.chat: two float4 a lane
     (3, 48, 1, 64, 128),     # a ragged batch
     (2, 8, 2, 24, 256),      # two float4 a lane, P not a multiple of the tile
     (4, 8, 1, 16, 16),       # the tiny models' rows
@@ -620,7 +632,7 @@ def test_ssm_decode_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.parametrize("arch,compute_dtype", [("mamba2-780m", "bfloat16"), ("zamba2", "bfloat16"),
-                                                ("granite", "bfloat16")])
+                                                ("granite", "bfloat16"), ("falcon_h1", "bfloat16")])
 def test_replayed_decode_launches_the_ssm_kernel_at_capture_only(cuda, arch, compute_dtype):
     """A model served through replayed graphs: ``ssm_decode``'s ``LAUNCHES`` rises by the Mamba2
     layers once for each ``decode_step`` run while a graph is captured (its warm-up step and the
@@ -643,9 +655,9 @@ def test_replayed_decode_launches_the_ssm_kernel_at_capture_only(cuda, arch, com
 
 # ------------------------------------------------------------- decode graphs
 def _graph_engine(cuda, compute_dtype="float32", arch="mamba2-780m"):
-    """A reduced model on the card (the registry's ``arch``, or with ``"zamba2"`` or ``"granite"`` the tiny
-    model of ``test_torch_zamba2.py`` or ``test_torch_granite.py``, its params in ``compute_dtype`` too) and
-    a maker of engines over it."""
+    """A reduced model on the card (the registry's ``arch``, or with ``"zamba2"``, ``"granite"`` or
+    ``"falcon_h1"`` the tiny model of ``test_torch_<arch>.py``, its params in ``compute_dtype`` too) and a
+    maker of engines over it."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
@@ -653,7 +665,7 @@ def _graph_engine(cuda, compute_dtype="float32", arch="mamba2-780m"):
     from repro_torch.models.config import ArchConfig
     from repro_torch.serve.engine import ServeEngine
 
-    if arch in ("zamba2", "granite"):
+    if arch in ("zamba2", "granite", "falcon_h1"):
         tiny = __import__(f"test_torch_{arch}")
         cfg = ArchConfig(**dict(tiny.ARCH, param_dtype=compute_dtype, compute_dtype=compute_dtype))
     else:
@@ -663,8 +675,9 @@ def _graph_engine(cuda, compute_dtype="float32", arch="mamba2-780m"):
 
 
 @pytest.mark.parametrize("arch,compute_dtype", [("mamba2-780m", "float32"), ("mamba2-780m", "bfloat16"),
-                                                ("zamba2", "bfloat16"), ("granite", "bfloat16")],
-                         ids=["float32", "bfloat16", "zamba2-bfloat16", "granite-bfloat16"])
+                                                ("zamba2", "bfloat16"), ("granite", "bfloat16"),
+                                                ("falcon_h1", "bfloat16")],
+                         ids=["float32", "bfloat16", "zamba2-bfloat16", "granite-bfloat16", "falcon_h1-bfloat16"])
 def test_served_by_replayed_graphs_is_the_eager_decode_bit_for_bit(cuda, arch, compute_dtype):
     """Three batches (two of 4 requests with other prompts, then one of 2) through an engine
     whose decode replays captured graphs: each step's logits and cache, and so every served
@@ -835,6 +848,47 @@ def test_granite_at_published_widths_serves_a_batch_under_80_gb(cuda):
     assert all(len(r.output) == 4 and all(0 <= t < cfg.vocab_size for t in r.output) for r in out)
     assert transformer.DECODE_GRAPHS["captures"] - before["captures"] == 1
     assert transformer.DECODE_GRAPHS["replays"] - before["replays"] == 3
+    assert peak < 80e9
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- falcon_h1
+def test_falcon_h1_at_published_widths_serves_a_batch_under_80_gb(cuda):
+    """falcon-h1-34b-instruct as the benchmark builds it (bf16, stage 0's 18 layers, each holding K/V
+    and an f32 state of 32 x 128 x 256 a sequence, the untied head over the whole vocabulary) serves one
+    batch of the ``chat`` mix's longest prompts through ``ServeEngine``: 32 x 1024 tokens, decode
+    replayed as a captured graph through the decode-attention and decode-state kernels.  The card's peak
+    stays under 80 GB; each request gets its tokens, in the vocabulary."""
+    import gc
+    import json
+    from pathlib import Path
+
+    from bench.harness import program
+    from bench.reference import falcon_h1_lm as ref
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "bench" / "configs" / "falcon-h1-34b-instruct.json").read_text())
+    arch = conf["arch"]
+    cfg = program.arch_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = program.build(cfg, ref, arch, 5, cuda)
+    eng = ServeEngine(cfg, params, max_len=1088, batch_size=32)
+    before = (dict(transformer.DECODE_GRAPHS), da_ops.LAUNCHES, sd_ops.LAUNCHES, ops.LAUNCHES)
+    prompts = torch.randint(0, cfg.vocab_size, (32, 1024), generator=torch.Generator().manual_seed(7))
+    out = eng.run_batch([Request(i, prompts[i], max_new_tokens=4) for i in range(32)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"falcon-h1-34b-instruct 32 x 1024, 4 new tokens: peak {peak} B")
+    assert all(len(r.output) == 4 and all(0 <= t < cfg.vocab_size for t in r.output) for r in out)
+    assert transformer.DECODE_GRAPHS["captures"] - before[0]["captures"] == 1
+    assert transformer.DECODE_GRAPHS["replays"] - before[0]["replays"] == 3
+    # each of the 18 layers: one scan in prefill; one attention and one state update a step, counted at capture
+    assert (da_ops.LAUNCHES - before[1], sd_ops.LAUNCHES - before[2], ops.LAUNCHES - before[3]) == (36, 36, 18)
     assert peak < 80e9
     del eng, params
     gc.collect()
